@@ -1,0 +1,818 @@
+"""Tensor-on-the-wire: torch tensors riding the RPC framework.
+
+The Python face of the native TensorArena bridge
+(native/ttpu/tensor_arena.h): a shm-backed arena both ends of a
+``tpu://`` connection map. The flow per tensor:
+
+  device tensor --(one D2H copy straight into arena pages)--> arena
+  --(by-reference doorbell)--> receiver reads the SAME physical pages in
+  place --(one H2D copy)--> device tensor on the other side.
+
+Typed tensors ride as: request/response payload = a small metadata header
+(``<u32 len><JSON dtype/shape[, codec/block]>``), attachment = the raw
+bytes in the arena. The wire is the JAX package's, byte for byte, so the
+two data planes interoperate.
+
+Device edges and their hazards:
+
+  * ``torch.from_numpy`` over an arena view ALIASES the pages, which the
+    release hands back for reuse: a CPU target detaches with ``.clone()``.
+  * A CUDA target copies with a blocking ``.to(device)`` from pageable
+    memory, which has finished reading the pages when it returns — so the
+    view may be released right after (no ``non_blocking`` copies from
+    arena views).
+  * All launches and copies go on torch's current stream, the same one on
+    every handler thread, so a pull's D2H is ordered after the push
+    kernel that produced the tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import struct
+import threading
+import time
+from collections import deque
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from brpc_tpu_torch.runtime import native
+from brpc_tpu_torch.runtime.native import RpcError, fill_err_text, lib
+
+# App-level error code (param_server.py holds E_NO_SUCH..E_EXISTS at
+# 2040-2043): a typed tensor send whose decoded meta header cannot be
+# applied to the payload. The client-side codec self-heal keys on it.
+E_UNDECODABLE = 2044
+
+_NP_DTYPES = {
+    torch.float32: np.float32, torch.float64: np.float64,
+    torch.float16: np.float16, torch.int8: np.int8, torch.uint8: np.uint8,
+    torch.int16: np.int16, torch.int32: np.int32, torch.int64: np.int64,
+    torch.bool: np.bool_,
+}
+
+
+_TORCH_DTYPES = {np.dtype(v): k for k, v in _NP_DTYPES.items()}
+
+
+def np_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype whose bytes a torch dtype's tensor carries."""
+    try:
+        return np.dtype(_NP_DTYPES[dtype])
+    except KeyError:
+        raise TypeError(f"{dtype} has no numpy wire dtype") from None
+
+
+def _bind_tensor_api(L: ctypes.CDLL) -> ctypes.CDLL:
+    if getattr(L, "_tensor_api_bound", False):
+        return L
+    L.tbrpc_arena_create.restype = ctypes.c_void_p
+    L.tbrpc_arena_create.argtypes = [ctypes.c_size_t]
+    L.tbrpc_arena_destroy.argtypes = [ctypes.c_void_p]
+    L.tbrpc_arena_base.restype = ctypes.c_void_p
+    L.tbrpc_arena_base.argtypes = [ctypes.c_void_p]
+    L.tbrpc_arena_alloc.restype = ctypes.c_int64
+    L.tbrpc_arena_alloc.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    L.tbrpc_arena_free.restype = ctypes.c_int
+    L.tbrpc_arena_free.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+    L.tbrpc_var_arena_gauges_create.argtypes = []
+    L.tbrpc_call_tensor.restype = ctypes.c_int
+    L.tbrpc_call_tensor.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p,
+        ctypes.c_void_p, ctypes.c_size_t,
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t),
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_char_p, ctypes.c_size_t]
+    L.tbrpc_view_free.argtypes = [ctypes.c_void_p]
+    L.tbrpc_server_add_tensor_service.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, _TENSOR_CB, ctypes.c_void_p]
+    L.tbrpc_call_tensor_async.restype = ctypes.c_void_p
+    L.tbrpc_call_tensor_async.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p,
+        ctypes.c_void_p, ctypes.c_size_t,
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_size_t,
+        ctypes.c_void_p, ctypes.c_void_p]
+    L.tbrpc_future_wait.restype = ctypes.c_int
+    L.tbrpc_future_wait.argtypes = [
+        ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t),
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_char_p, ctypes.c_size_t]
+    L.tbrpc_future_cancel.restype = ctypes.c_int
+    L.tbrpc_future_cancel.argtypes = [ctypes.c_void_p]
+    L.tbrpc_future_destroy.argtypes = [ctypes.c_void_p]
+    L._tensor_api_bound = True
+    return L
+
+
+_TENSOR_CB = ctypes.CFUNCTYPE(
+    None,
+    ctypes.c_void_p,                    # ctx
+    ctypes.c_char_p,                    # method
+    ctypes.c_void_p, ctypes.c_size_t,   # req
+    ctypes.c_void_p, ctypes.c_size_t,   # attachment, IN PLACE
+    ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t),  # resp
+    ctypes.POINTER(ctypes.c_void_p),    # resp_arena
+    ctypes.POINTER(ctypes.c_uint64),    # resp_att_off
+    ctypes.POINTER(ctypes.c_size_t),    # resp_att_len
+    ctypes.POINTER(ctypes.c_int),       # resp_att_autofree
+    ctypes.POINTER(ctypes.c_int),       # error_code
+    ctypes.c_void_p, ctypes.c_size_t,   # err_text buffer (C-owned)
+)
+
+
+# ---- data-plane metrics (created lazily: importing loads no library) ----
+
+_metrics_cache = None
+_metrics_mu = threading.Lock()
+
+
+def _metrics():
+    global _metrics_cache
+    with _metrics_mu:
+        if _metrics_cache is None:
+            from brpc_tpu_torch.observability import metrics as obs
+
+            L = _bind_tensor_api(lib())
+            # Native arena occupancy gauges (tensor_arena_busy_bytes /
+            # _total_bytes), shared with every data plane in the process.
+            L.tbrpc_var_arena_gauges_create()
+            _metrics_cache = {
+                "pull": obs.latency("torch_tensor_pull"),
+                "push": obs.latency("torch_tensor_push"),
+                "pull_bytes": obs.counter("torch_tensor_pull_bytes"),
+                "push_bytes": obs.counter("torch_tensor_push_bytes"),
+                # Handler body PLUS response staging into the arena.
+                "serve": obs.latency("torch_tensor_handler"),
+            }
+        return _metrics_cache
+
+
+def _stage(name):
+    from brpc_tpu_torch.observability import tracing
+
+    return tracing.stage(name)
+
+
+_pipeline_mu = threading.Lock()
+_pipeline_inflight = 0
+
+
+def _pipeline_inflight_add(delta: int) -> None:
+    global _pipeline_inflight
+    with _pipeline_mu:
+        _pipeline_inflight += delta
+
+
+def _pipeline_gauge() -> None:
+    from brpc_tpu_torch.observability import metrics as obs
+
+    obs.gauge("torch_tensor_pipeline_inflight", lambda: _pipeline_inflight)
+
+
+def _encode_meta(arr: np.ndarray) -> bytes:
+    """The raw tensor header (dtype/shape) of a host array."""
+    from brpc_tpu_torch.runtime import codec as codec_mod
+
+    return codec_mod.pack_header({"dtype": arr.dtype.str,
+                                  "shape": list(arr.shape)})
+
+
+def _decode_meta_ex(buf: bytes) -> Tuple[dict, bytes]:
+    """Header -> (metadata dict, rest of payload)."""
+    (n,) = struct.unpack_from("<I", buf)
+    return json.loads(buf[4:4 + n].decode()), buf[4 + n:]
+
+
+class WireTensor:
+    """A response tensor already encoded for the wire: ``data`` (uint8,
+    staged into the service arena as-is) plus its exact ``header``.
+    ``placed`` is an ``(off, nbytes)`` range the handler already wrote into
+    the service's own arena; the trampoline sends it as-is (autofree)."""
+
+    __slots__ = ("data", "header", "placed")
+
+    def __init__(self, data: Optional[np.ndarray], header: bytes,
+                 placed: Optional[Tuple[int, int]] = None):
+        self.data = data
+        self.header = header
+        self.placed = placed
+
+
+def _as_host_array(x) -> np.ndarray:
+    """torch tensor -> host ndarray (one D2H copy for a CUDA tensor, a
+    shared view for a contiguous CPU one); ndarray passes through."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().contiguous().cpu().numpy()
+    return np.asarray(x)
+
+
+def _device_put_from_view(arr: np.ndarray, device: torch.device
+                          ) -> torch.Tensor:
+    """A tensor on ``device`` holding a copy of ``arr``, which VIEWS
+    arena/view pages — complete before return, so the caller may release
+    the view. CPU: ``clone()`` (``from_numpy`` aliases the pages). CUDA:
+    blocking H2D from pageable memory."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cpu":
+        return t.clone()
+    return t.to(device)
+
+
+def _detach_device_put_batch(parts, device: torch.device) -> list:
+    """Every (codes, scales) pair of ``parts`` onto ``device``, complete
+    before return (the views' pages may be reused right after). Returns
+    the flat ``[q0, s0, q1, s1, ...]`` tensor list."""
+    flat = []
+    for q, s in parts:
+        flat.append(_device_put_from_view(q, device))
+        flat.append(_device_put_from_view(s, device))
+    return flat
+
+
+def _dequant_widen(q_dev: torch.Tensor, s_dev: torch.Tensor, codec: str,
+                   block, n, shape, want=None) -> torch.Tensor:
+    """Widen-and-scale detached codes/scales with the dequantize kernel
+    (its plain version for CPU tensors). e4m3 codes arrive as raw bytes
+    and are reinterpreted here; ``want`` restores a non-fp32 dtype."""
+    from brpc_tpu_torch.ops.quantize import dequantize_blocks
+
+    if codec == "fp8e4m3":
+        q_dev = q_dev.view(torch.float8_e4m3fn)
+    out = dequantize_blocks(q_dev, s_dev, block=int(block), n=int(n),
+                            shape=tuple(shape))
+    if want is not None and np.dtype(want) != np.float32:
+        out = out.to(_TORCH_DTYPES[np.dtype(want)])
+    return out
+
+
+def _dequant_put_from_view(meta: dict, payload_u8: np.ndarray,
+                           device: torch.device, codec_mod) -> torch.Tensor:
+    """A received ``[scales][codes]`` view -> fp32 tensor on ``device``:
+    the codes and scales cross (a quarter of the fp32 bytes), then the
+    dequantize kernel widens them on the device."""
+    q, scales = codec_mod.split_wire(meta, payload_u8)
+    q_dev, s_dev = _detach_device_put_batch([(q, scales)], device)
+    return _dequant_widen(q_dev, s_dev, meta["codec"], meta["block"],
+                          int(np.prod(meta["shape"], dtype=np.int64)),
+                          meta["shape"], want=meta["dtype"])
+
+
+class TensorArena:
+    """Registered transfer memory, exposed as numpy views."""
+
+    def __init__(self, nbytes: int):
+        self._L = _bind_tensor_api(lib())
+        self._h = self._L.tbrpc_arena_create(nbytes)
+        if not self._h:
+            raise MemoryError(f"arena create({nbytes}) failed")
+        self._base = self._L.tbrpc_arena_base(self._h)
+        self.nbytes = nbytes
+        _metrics()  # occupancy gauges cover this arena from now on
+
+    @property
+    def handle(self) -> int:
+        return self._h
+
+    def alloc(self, nbytes: int) -> int:
+        if not self._h:
+            raise RuntimeError("arena is closed")
+        off = self._L.tbrpc_arena_alloc(self._h, nbytes)
+        if off < 0:
+            raise MemoryError(f"arena alloc({nbytes}) failed (fragmented?)")
+        return off
+
+    def free(self, off: int) -> None:
+        self._L.tbrpc_arena_free(self._h, off)
+
+    def view(self, off: int, nbytes: int) -> np.ndarray:
+        """A uint8 view of arena pages — writes here ARE the staging."""
+        buf = (ctypes.c_uint8 * nbytes).from_address(self._base + off)
+        return np.ctypeslib.as_array(buf)
+
+    def place(self, array) -> Tuple[int, int, np.ndarray]:
+        """Stage a tensor's or array's bytes into the arena:
+        ``(off, nbytes, host)``, where ``host`` is a typed view of the
+        staged bytes (it carries dtype/shape for the header). A CUDA
+        tensor is copied D2H straight into the arena pages."""
+        if isinstance(array, torch.Tensor):
+            t = array.detach().contiguous()
+            dt = np_dtype(t.dtype)
+            if t.numel() == 0:
+                return 0, 0, np.empty(tuple(t.shape), dt)
+            nbytes = t.numel() * t.element_size()
+            off = self.alloc(nbytes)
+            view = self.view(off, nbytes)
+            torch.from_numpy(view).copy_(t.reshape(-1).view(torch.uint8))
+            return off, nbytes, view.view(dt).reshape(tuple(t.shape))
+        host = np.asarray(array)
+        if host.nbytes == 0:
+            return 0, 0, host  # empty tensors ride as metadata only
+        off = self.alloc(host.nbytes)
+        self.view(off, host.nbytes)[:] = np.ascontiguousarray(
+            host).reshape(-1).view(np.uint8)
+        return off, host.nbytes, host
+
+    def close(self) -> None:
+        if self._h:
+            self._L.tbrpc_arena_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+
+class TensorView:
+    """A zero-copy window onto a received tensor (the peer's arena pages
+    or the connection's RX segment). ``release()`` lets the sender reuse
+    the range — call it (or use as a context manager) once consumed."""
+
+    def __init__(self, L, view_handle, ptr, nbytes, copied: bool):
+        self._L = L
+        self._view = view_handle
+        self._ptr = ptr
+        self._copied = copied
+        self.nbytes = nbytes
+
+    def ndarray(self) -> np.ndarray:
+        if not self.nbytes or not self._ptr:
+            return np.empty(0, dtype=np.uint8)
+        buf = (ctypes.c_uint8 * self.nbytes).from_address(self._ptr)
+        return np.ctypeslib.as_array(buf)
+
+    def release(self) -> None:
+        if self._view:
+            self._L.tbrpc_view_free(self._view)
+            self._view = None
+        elif self._copied and self._ptr:
+            self._L.tbrpc_free(self._ptr)
+        self._ptr = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+
+    def __del__(self):
+        try:
+            self.release()
+        except Exception:  # noqa: BLE001
+            pass
+
+
+def consume_pull_reply(payload: bytes, view: TensorView,
+                       device: torch.device,
+                       note_name: Optional[str] = None):
+    """Decode a pulled-tensor reply onto ``device`` straight from the
+    zero-copy view, then release the view. Returns ``(rest_of_payload,
+    tensor, logical_nbytes)``. A header with codec fields takes the
+    dequantize path (the codes cross, the kernel widens)."""
+    with view:
+        meta, rest = _decode_meta_ex(payload)
+        if "codec" in meta:
+            from brpc_tpu_torch.runtime import codec as codec_mod
+
+            nbytes = int(np.prod(meta["shape"], dtype=np.int64)
+                         ) * np.dtype(meta["dtype"]).itemsize
+            if note_name is not None:
+                codec_mod.note(note_name, meta["codec"], nbytes,
+                               int(view.nbytes))
+            with _stage("dequant"):
+                try:
+                    dev = _dequant_put_from_view(meta, view.ndarray(),
+                                                 device, codec_mod)
+                except ValueError as ve:
+                    # Corrupt/truncated quantized reply: the structural
+                    # app code, so pull_all's partial salvage engages.
+                    raise RpcError(
+                        E_UNDECODABLE,
+                        f"undecodable tensor payload: {ve}") from ve
+        else:
+            arr = view.ndarray().view(np.dtype(meta["dtype"])).reshape(
+                tuple(meta["shape"]))
+            nbytes = view.nbytes
+            with _stage("device_put"):
+                dev = _device_put_from_view(arr, device)
+    return rest, dev, nbytes
+
+
+class TensorFuture:
+    """One in-flight async tensor RPC (``TensorChannel.call_async``).
+    ``result()`` parks until the response arrives and returns ``(payload,
+    TensorView)``; results are cached on first take."""
+
+    def __init__(self, L, handle, service_method):
+        self._L = L
+        self._h = handle
+        self._method = service_method
+        self._payload = None
+        self._view: Optional[TensorView] = None
+        self._error: Optional[RpcError] = None
+        self._taken = False
+
+    def result(self) -> Tuple[bytes, TensorView]:
+        if not self._taken:
+            self._wait()
+        if self._error is not None:
+            raise self._error
+        return self._payload, self._view
+
+    def _wait(self) -> None:
+        if not self._h:
+            raise RuntimeError("future is closed")
+        L = self._L
+        resp = ctypes.c_void_p()
+        resp_len = ctypes.c_size_t()
+        view = ctypes.c_void_p()
+        ratt = ctypes.c_void_p()
+        ratt_len = ctypes.c_size_t()
+        copied = ctypes.c_int()
+        errbuf = ctypes.create_string_buffer(256)
+        rc = L.tbrpc_future_wait(
+            self._h, ctypes.byref(resp), ctypes.byref(resp_len),
+            ctypes.byref(view), ctypes.byref(ratt), ctypes.byref(ratt_len),
+            ctypes.byref(copied), errbuf, len(errbuf))
+        self._taken = True
+        if rc != 0:
+            self._error = RpcError(rc, errbuf.value.decode(errors="replace"))
+        else:
+            try:
+                self._payload = (ctypes.string_at(resp, resp_len.value)
+                                 if resp_len.value else b"")
+            finally:
+                L.tbrpc_free(resp)
+            self._view = TensorView(L, view.value, ratt.value,
+                                    ratt_len.value, bool(copied.value))
+        self.close()  # ownership is out; the native box is spent
+
+    def cancel(self) -> None:
+        """Cancel an in-flight RPC (a later ``result()`` raises ECANCELED)."""
+        if self._h and not self._taken:
+            self._L.tbrpc_future_cancel(self._h)
+
+    def close(self) -> None:
+        """Release the native future (idempotent); in flight: cancels."""
+        if self._h:
+            self._L.tbrpc_future_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+
+class PipelineWindow:
+    """Bounded-window pipelining over one ``TensorChannel``: up to
+    ``window`` tensor RPCs in flight, so staging of tensor k+1 overlaps
+    the wire of tensor k. Submission order == delivery order; each arena
+    range is freed as its RPC completes. Replies go to ``on_reply(tag,
+    payload, view)`` on the submitting thread, or — without it — are
+    collected by ``flush()``."""
+
+    def __init__(self, channel: "TensorChannel", window: int = 4,
+                 on_reply: Optional[Callable] = None):
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        self.channel = channel
+        self.window = window
+        self.on_reply = on_reply
+        self._q: deque = deque()  # (tag, future, arena_off, arena_len)
+        self._results: list = []
+        _pipeline_gauge()
+
+    def submit(self, service_method: str, array=None, request: bytes = b"",
+               tag=None, encoder=None) -> None:
+        """Stage ``array`` (optional) into the channel arena and start the
+        RPC; blocks only while the window is full. ``encoder(host) ->
+        (wire_uint8, header_bytes) | None`` quantizes at stage time; None
+        rides raw."""
+        while len(self._q) >= self.window:
+            self._complete_oldest()
+        off = length = 0
+        if array is not None:
+            with _stage("arena_stage"):
+                enc = None
+                if encoder is not None:
+                    array = _as_host_array(array)
+                    enc = encoder(array)
+                if enc is None:
+                    off, length, host = self.channel.arena.place(array)
+                    request = _encode_meta(host) + request
+                else:
+                    wire, header = enc
+                    off, length, _ = self.channel.arena.place(wire)
+                    request = header + request
+        try:
+            fut = self.channel.call_async(service_method, request, off,
+                                          length)
+        except Exception:
+            if length:
+                self.channel.arena.free(off)
+            raise
+        _pipeline_inflight_add(1)
+        self._q.append((tag, fut, off, length))
+
+    def _complete_oldest(self) -> None:
+        # Failures carry the failed call's tag as ``e.pipeline_tag`` so
+        # callers can attribute them per tensor.
+        tag, fut, off, length = self._q.popleft()
+        try:
+            try:
+                with _stage("wire_wait"):
+                    payload, view = fut.result()
+            finally:
+                _pipeline_inflight_add(-1)
+                if length:
+                    self.channel.arena.free(off)  # freed as refs drain
+            if self.on_reply is not None:
+                try:
+                    self.on_reply(tag, payload, view)
+                except Exception:
+                    view.release()  # else the PEER's range never drains
+                    raise
+            else:
+                self._results.append((tag, payload, view))
+        except Exception as e:  # noqa: BLE001 — annotate and re-raise
+            e.pipeline_tag = tag
+            raise
+
+    def flush(self) -> list:
+        while self._q:
+            self._complete_oldest()
+        out, self._results = self._results, []
+        return out
+
+    def abort(self) -> None:
+        """Error-path teardown: cancel and release everything in flight."""
+        while self._q:
+            _tag, fut, off, length = self._q.popleft()
+            _pipeline_inflight_add(-1)
+            try:
+                fut.cancel()
+                fut.close()
+            finally:
+                if length:
+                    self.channel.arena.free(off)
+        for _tag, _payload, view in self._results:
+            view.release()
+        self._results = []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, *_exc):
+        if exc_type is None:
+            self.flush()
+        else:
+            self.abort()
+
+
+class TensorChannel:
+    """Client stub for tensor traffic: a ``tpu://`` channel plus a local
+    arena the outbound tensors stage through."""
+
+    def __init__(self, addr: str, arena: Optional[TensorArena] = None,
+                 timeout_ms: int = 20000, max_retry: int = 0):
+        self._L = _bind_tensor_api(lib())
+        if "://" not in addr:
+            addr = "tpu://" + addr
+        self._h = self._L.tbrpc_channel_create(addr.encode(), timeout_ms,
+                                               max_retry)
+        if not self._h:
+            raise RuntimeError(f"tensor channel init to {addr} failed")
+        native._LIVE_CHANNELS.add(self)
+        self.arena = arena if arena is not None else TensorArena(256 << 20)
+
+    def call_raw(self, service_method: str, request: bytes,
+                 att_off: int = 0, att_len: int = 0
+                 ) -> Tuple[bytes, TensorView]:
+        """One RPC: request bytes + an arena range as the attachment."""
+        if not self._h:
+            raise RuntimeError("tensor channel is closed")
+        L = self._L
+        resp = ctypes.c_void_p()
+        resp_len = ctypes.c_size_t()
+        view = ctypes.c_void_p()
+        ratt = ctypes.c_void_p()
+        ratt_len = ctypes.c_size_t()
+        copied = ctypes.c_int()
+        errbuf = ctypes.create_string_buffer(256)
+        rc = L.tbrpc_call_tensor(
+            self._h, service_method.encode(), request, len(request),
+            self.arena.handle if att_len else None, att_off, att_len,
+            ctypes.byref(resp), ctypes.byref(resp_len), ctypes.byref(view),
+            ctypes.byref(ratt), ctypes.byref(ratt_len), ctypes.byref(copied),
+            errbuf, len(errbuf))
+        if rc != 0:
+            raise RpcError(rc, errbuf.value.decode(errors="replace"))
+        try:
+            payload = (ctypes.string_at(resp, resp_len.value)
+                       if resp_len.value else b"")
+        finally:
+            L.tbrpc_free(resp)
+        return payload, TensorView(L, view.value, ratt.value, ratt_len.value,
+                                   bool(copied.value))
+
+    def call_async(self, service_method: str, request: bytes = b"",
+                   att_off: int = 0, att_len: int = 0) -> TensorFuture:
+        """Submit one RPC without blocking. The arena range takes its local
+        reference before this returns, so ``arena.free`` any time after
+        submission is safe."""
+        if not self._h:
+            raise RuntimeError("tensor channel is closed")
+        h = self._L.tbrpc_call_tensor_async(
+            self._h, service_method.encode(), request, len(request),
+            self.arena.handle if att_len else None, att_off, att_len,
+            None, None)
+        if not h:
+            raise RpcError(native.TRPC_EINTERNAL,
+                           f"async submit of {service_method} failed")
+        return TensorFuture(self._L, h, service_method)
+
+    def call(self, service_method: str, array=None, request: bytes = b""
+             ) -> Tuple[bytes, Optional[np.ndarray]]:
+        """Send a tensor (or nothing), receive a detached host ndarray
+        (or nothing)."""
+        off = length = 0
+        if array is not None:
+            off, length, host = self.arena.place(array)
+            request = _encode_meta(host) + request
+        try:
+            payload, view = self.call_raw(service_method, request, off,
+                                          length)
+        finally:
+            if length:
+                self.arena.free(off)  # deferred until releases drain
+        with view:
+            if view.nbytes == 0:
+                return payload, None
+            meta, rest = _decode_meta_ex(payload)
+            if "codec" in meta:
+                from brpc_tpu_torch.runtime import codec as codec_mod
+
+                return rest, codec_mod.decode(meta, view.ndarray())
+            arr = view.ndarray().view(np.dtype(meta["dtype"])).reshape(
+                tuple(meta["shape"]))
+            return rest, np.array(arr)  # detach before releasing the view
+
+    def pull_device(self, service_method: str, request: bytes,
+                    device: torch.device, note_name: Optional[str] = None):
+        """Fetch a tensor onto ``device`` STRAIGHT from the received view,
+        then release the view. Returns (rest_of_payload, tensor)."""
+        t0 = time.monotonic()
+        with _stage("rpc"):
+            payload, view = self.call_raw(service_method, request)
+        rest, dev, nbytes = consume_pull_reply(payload, view, device,
+                                               note_name=note_name)
+        m = _metrics()
+        m["pull"].record_s(time.monotonic() - t0)
+        m["pull_bytes"].add(nbytes)
+        return rest, dev
+
+    def push_device(self, service_method: str, array,
+                    request: bytes = b"", encoder=None) -> bytes:
+        """Send a tensor (D2H into the arena, by reference on the wire) and
+        wait for the reply. ``encoder`` is ``PipelineWindow.submit``'s
+        per-tensor hook."""
+        t0 = time.monotonic()
+        with _stage("arena_stage"):
+            enc = None
+            if encoder is not None:
+                array = _as_host_array(array)
+                enc = encoder(array)
+            if enc is None:
+                off, length, host = self.arena.place(array)
+                header = _encode_meta(host)
+            else:
+                wire, header = enc
+                off, length, _ = self.arena.place(wire)
+        try:
+            with _stage("rpc"):
+                payload, view = self.call_raw(
+                    service_method, header + request, off, length)
+            view.release()
+            m = _metrics()
+            m["push"].record_s(time.monotonic() - t0)
+            m["push_bytes"].add(length)
+            return payload
+        finally:
+            if length:
+                self.arena.free(off)
+
+    def close(self) -> None:
+        if self._h:
+            self._L.tbrpc_channel_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001
+            pass
+
+
+# Handler: (method, request_bytes, attachment: ndarray view | QuantizedView
+#   | None) -> (response_bytes, response tensor/array/WireTensor | None)
+TensorHandler = Callable[[str, bytes, Optional[object]],
+                         Tuple[bytes, Optional[object]]]
+
+
+def add_tensor_service(server: native.Server, name: str,
+                       handler: TensorHandler,
+                       arena: Optional[TensorArena] = None) -> TensorArena:
+    """Host a tensor service on a native Server: the handler reads request
+    tensors IN PLACE (a numpy view of the sender's pages) and returns
+    response tensors through the service's own arena (by reference on the
+    wire). Returns that arena."""
+    L = _bind_tensor_api(lib())
+    srv_arena = arena if arena is not None else TensorArena(256 << 20)
+
+    def trampoline(ctx, method, req, req_len, att, att_len,
+                   resp, resp_len, resp_arena, resp_off, resp_att_len,
+                   resp_autofree, error_code, err_text, err_text_cap):
+        t0 = time.monotonic()
+        try:
+            request = ctypes.string_at(req, req_len) if req_len else b""
+            att_view = None
+            if att_len:
+                buf = (ctypes.c_uint8 * att_len).from_address(att)
+                att_view = np.ctypeslib.as_array(buf)
+                if len(request) >= 4:
+                    # Typed sends prefix the payload with their header.
+                    meta = None
+                    try:
+                        meta, request = _decode_meta_ex(request)
+                    except Exception:  # noqa: BLE001 — raw-byte sender
+                        pass
+                    # A decoded header that does not fit the payload is an
+                    # undecodable typed send: answer a clean error, never
+                    # hand the handler the flat wire bytes.
+                    if meta is not None:
+                        try:
+                            if "codec" in meta:
+                                from brpc_tpu_torch.runtime import (
+                                    codec as codec_mod)
+
+                                att_view = codec_mod.QuantizedView(
+                                    meta, att_view)
+                            else:
+                                att_view = att_view.view(
+                                    np.dtype(meta["dtype"])).reshape(
+                                        tuple(meta["shape"]))
+                        except Exception as e:  # noqa: BLE001
+                            raise RpcError(
+                                E_UNDECODABLE,
+                                f"undecodable tensor payload "
+                                f"(meta={meta!r}): {e}") from e
+            r, out_arr = handler(method.decode(), request, att_view)
+            off = nbytes = 0
+            if isinstance(out_arr, WireTensor):
+                # Pre-encoded response: stage the bytes, send its header.
+                if out_arr.placed is not None:
+                    off, nbytes = out_arr.placed
+                else:
+                    off, nbytes, _ = srv_arena.place(out_arr.data)
+                r = out_arr.header + r
+            elif out_arr is not None:
+                off, nbytes, host = srv_arena.place(out_arr)
+                r = _encode_meta(host) + r
+            if nbytes:
+                resp_arena[0] = srv_arena.handle
+                resp_off[0] = off
+                resp_att_len[0] = nbytes
+                # Autofree: the C side frees AFTER taking the response
+                # ref, so the range returns once the client releases.
+                resp_autofree[0] = 1
+            if r:
+                buf = L.tbrpc_alloc(len(r))
+                ctypes.memmove(buf, r, len(r))
+                resp[0] = buf
+                resp_len[0] = len(r)
+        except RpcError as e:
+            error_code[0] = e.code if e.code != 0 \
+                else native.TRPC_EINTERNAL
+            fill_err_text(err_text, err_text_cap, e.text)
+        except Exception as e:  # noqa: BLE001 — handler bug => EINTERNAL
+            error_code[0] = native.TRPC_EINTERNAL
+            fill_err_text(err_text, err_text_cap, f"{type(e).__name__}: {e}")
+        finally:
+            _metrics()["serve"].record_s(time.monotonic() - t0)
+
+    cb = _TENSOR_CB(trampoline)
+    server._cbs.append(cb)  # keep alive with the server
+    if L.tbrpc_server_add_tensor_service(
+            server._h, name.encode(), cb, None) != 0:
+        raise RuntimeError(f"add_tensor_service({name}) failed")
+    return srv_arena

@@ -1,0 +1,97 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and
+its entry points never fall back to the CPU on their own."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "brpc_tpu_torch")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _dirs, names in os.walk(PKG):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in ("jax", "jaxlib", "brpc_tpu")
+
+
+def test_no_file_of_the_port_imports_jax_or_brpc_tpu():
+    files = _port_files()
+    assert len(files) > 15
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, ROOT)}:{node.lineno} {m}"
+                    for m in mods if _forbidden(m)]
+    assert not bad, bad
+
+
+def test_every_module_imports_with_jax_and_brpc_tpu_blocked():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['brpc_tpu'] = None\n"
+        "import brpc_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    brpc_tpu_torch.__path__, 'brpc_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert 'brpc_tpu_torch.runtime.param_server' in names\n"
+        "assert not any(m.split('.')[0] in ('jax', 'brpc_tpu')\n"
+        "               for m, v in sys.modules.items() if v is not None)\n"
+        "print(len(names))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) >= 14
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device resolves")
+    from brpc_tpu_torch.runtime.param_server import (ParameterClient,
+                                                     ParameterServer)
+    from brpc_tpu_torch.runtime.state import state_from_numpy
+    from brpc_tpu_torch.utils.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ParameterServer({"w": np.zeros(8, np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        state_from_numpy({"w": np.zeros(8, np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ParameterClient("tpu://127.0.0.1:1")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda:0")
+
+
+def test_cpu_tensors_never_build_or_load_the_kernels():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: another test may load the kernels")
+    from brpc_tpu_torch.ops import _build
+    from brpc_tpu_torch.ops.fused_update import fused_momentum_update
+    from brpc_tpu_torch.ops.quantize import dequantize_blocks
+
+    x = torch.ones(300)
+    fused_momentum_update(x, x, x)
+    dequantize_blocks(torch.ones(300, dtype=torch.int8), torch.ones(2),
+                      block=256, n=300, shape=(300,))
+    assert _build._lib is None  # no nvcc looked for, nothing loaded
