@@ -10,13 +10,17 @@ again whenever the hash of the sources or flags changes.
 Each launcher is ``extern "C"``, takes raw device pointers, the element
 count, its scalars and a ``cudaStream_t``, and returns
 ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+
+The check of the hash and the build run under an inter-process file lock
+on ``_build/build.lock`` (``utils.build.file_lock``), and the library is
+installed with ``os.replace``: ranks started together on several cards
+build once and never load a half-written library.
 """
 
 from __future__ import annotations
 
 import ctypes
 import glob
-import hashlib
 import os
 import shutil
 import subprocess
@@ -24,10 +28,14 @@ import threading
 import time
 from typing import Dict, Optional
 
+from brpc_tpu_torch.utils.build import (file_lock, read_stamp, source_digest,
+                                        write_stamp)
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libbrpc_tpu_torch_kernels.so")
+_STAMP = os.path.join(BUILD_DIR, "sources.sha256")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -66,12 +74,8 @@ def _sources():
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
-        h.update(os.path.basename(path).encode())
-        with open(path, "rb") as f:
-            h.update(f.read())
-    return h.hexdigest()
+    return source_digest(CSRC, glob.glob(os.path.join(CSRC, "*.cu*")),
+                         NVCC_FLAGS)
 
 
 def _nvcc() -> str:
@@ -113,8 +117,7 @@ def _build(digest: str) -> None:
         raise RuntimeError("nvcc link failed:\n"
                            + r.stderr.decode(errors="replace"))
     os.replace(tmp, LIB_PATH)
-    with open(os.path.join(BUILD_DIR, "sources.sha256"), "w") as f:
-        f.write(digest)
+    write_stamp(_STAMP, digest)
     last_build["seconds"] = time.monotonic() - t0
     last_build["log"] = "\n".join(log)
 
@@ -125,14 +128,11 @@ def load() -> ctypes.CDLL:
     with _mu:
         if _lib is None:
             digest = _digest()
-            stamp = os.path.join(BUILD_DIR, "sources.sha256")
-            current = None
-            if os.path.exists(LIB_PATH) and os.path.exists(stamp):
-                with open(stamp) as f:
-                    current = f.read().strip()
-            if current != digest:
-                _build(digest)
-            _lib = ctypes.CDLL(LIB_PATH)
+            with file_lock(os.path.join(BUILD_DIR, "build.lock")):
+                if (not os.path.exists(LIB_PATH)
+                        or read_stamp(_STAMP) != digest):
+                    _build(digest)
+                _lib = ctypes.CDLL(LIB_PATH)
         return _lib
 
 

@@ -3,16 +3,32 @@
 The port's own copy of the binding the parameter-server path uses: the
 native ``Server``/``Channel`` objects, ``RpcError`` and the transport error
 codes, the ambient QoS scope, and ``lib()``, which loads — building on
-demand — the same ``native/build/libbrpc_tpu.so`` the JAX package loads
-(rebuilt with ``g++`` when the copy found there does not link libstdc++
-dynamically, as torch needs).
-Handlers run on the native side's dedicated callback pthreads, never on a
-fiber (ctypes pairs its GIL state on one OS thread).
+demand — a ``libbrpc_tpu.so`` that links libstdc++ dynamically, as torch
+needs. Handlers run on the native side's dedicated callback pthreads, never
+on a fiber (ctypes pairs its GIL state on one OS thread).
 
-Build on demand: ``cmake`` + ``ninja`` when both are installed; otherwise
-every ``native/{tbutil,tbthread,tbvar,trpc,ttpu,capi}`` source is compiled
-directly with ``g++`` (in parallel, one process per core) and linked into
-the shared library — the route for hosts without the CMake toolchain.
+Which library, and the build rule (``library_path``):
+
+- ``native/build/libbrpc_tpu.so``, the JAX package's, whenever it links
+  libstdc++ dynamically: one copy of the runtime per process, shared with
+  the JAX package in the parity tests. The port never overwrites it and
+  never passes a compiler into its tree. Where that library is missing
+  and cmake+ninja are present, the port configures the tree with exactly
+  the JAX package's arguments (so a cache either package wrote stays as
+  it is) and builds the library target, as a JAX-package process would.
+- else ``native/build_torch/libbrpc_tpu.so``, built with ``g++`` (every
+  ``native/{tbutil,tbthread,tbvar,trpc,ttpu,capi}`` source compiled in
+  parallel, one process per core, then linked), for a tree whose library
+  does not link libstdc++ dynamically (a toolchain that links its own
+  libstdc++ statically yields iostreams that crash once torch is loaded)
+  or for hosts without cmake+ninja. It is stamped with the hash of those
+  sources and rebuilt when they change.
+
+The port's configure, builds and install run under an inter-process lock
+on ``native/build.lock``, and the ``g++`` copy is installed with
+``os.replace``, so two port processes at first use never build at once
+nor load a half-written file. The JAX package's processes do not take
+that lock; against them the port is one more JAX-package process.
 """
 
 from __future__ import annotations
@@ -29,6 +45,9 @@ import threading
 import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
+
+from brpc_tpu_torch.utils.build import (file_lock, read_stamp, source_digest,
+                                        write_stamp)
 
 # Request priority lanes (native/trpc/qos.h): HIGH is the control plane,
 # BULK is tensor pull/push, NORMAL the unmarked default.
@@ -57,8 +76,13 @@ _RETRY_AFTER_RE = re.compile(r"retry_after_ms=(\d+)")
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+# The JAX package's build tree and library (never overwritten here).
 _BUILD_DIR = os.path.join(_REPO, "native", "build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libbrpc_tpu.so")
+# The port's own g++ copy, where the JAX package's cannot sit beside torch.
+_TORCH_BUILD_DIR = os.path.join(_REPO, "native", "build_torch")
+_TORCH_LIB_PATH = os.path.join(_TORCH_BUILD_DIR, "libbrpc_tpu.so")
+_LOCK_PATH = os.path.join(_REPO, "native", "build.lock")
 _NATIVE_DIRS = ("tbutil", "tbthread", "tbvar", "trpc", "ttpu", "capi")
 _CXXFLAGS = ["-std=c++20", "-O2", "-fPIC", "-fno-omit-frame-pointer",
              "-DNDEBUG"]
@@ -117,14 +141,21 @@ def _zlib_link_args() -> list:
     return ["-lz"]  # let the link report what is missing
 
 
-def _build_native_gxx() -> None:
-    """Compile every native source with g++ in parallel, then link."""
-    obj_dir = os.path.join(_BUILD_DIR, "gxx_obj")
-    os.makedirs(obj_dir, exist_ok=True)
-    srcs = []
+def _native_sources() -> list:
+    """Every source and header the ``g++`` copy is built from."""
+    out = []
     for d in _NATIVE_DIRS:
-        srcs += sorted(glob.glob(os.path.join(_REPO, "native", d, "*.cpp")))
-        srcs += sorted(glob.glob(os.path.join(_REPO, "native", d, "*.S")))
+        for ext in ("*.cpp", "*.S", "*.h"):
+            out += glob.glob(os.path.join(_REPO, "native", d, ext))
+    return sorted(out)
+
+
+def _build_native_gxx() -> None:
+    """Compile every native source with g++ in parallel, link, and install
+    ``native/build_torch/libbrpc_tpu.so`` atomically."""
+    obj_dir = os.path.join(_TORCH_BUILD_DIR, "obj")
+    os.makedirs(obj_dir, exist_ok=True)
+    srcs = [s for s in _native_sources() if not s.endswith(".h")]
 
     def compile_one(src: str) -> str:
         rel = os.path.relpath(src, os.path.join(_REPO, "native"))
@@ -139,36 +170,60 @@ def _build_native_gxx() -> None:
 
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 2) as pool:
         objs = list(pool.map(compile_one, srcs))
-    tmp = _LIB_PATH + f".tmp{os.getpid()}"
+    tmp = _TORCH_LIB_PATH + f".tmp{os.getpid()}"
     cmd = ["g++", "-shared", "-o", tmp, *objs, "-lpthread", "-lrt",
            *_zlib_link_args(), "-ldl"]
     r = subprocess.run(cmd, capture_output=True)  # tpulint: allow(py-blocking)
     if r.returncode != 0:
         raise RuntimeError("linking libbrpc_tpu.so failed:\n"
                            + r.stderr.decode(errors="replace")[-4000:])
-    os.replace(tmp, _LIB_PATH)
+    os.replace(tmp, _TORCH_LIB_PATH)
 
 
-def build_native() -> None:
-    """Build ``native/build/libbrpc_tpu.so`` from the checkout. Runs at the
-    first ``lib()`` call, before any server, channel or fiber exists."""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    if shutil.which("cmake") and shutil.which("ninja"):
-        # The compiler is the g++ on PATH, not $CXX: the library is loaded
-        # into processes that already hold torch's libstdc++, so it must
-        # link libstdc++ dynamically. A toolchain that links its own copy
-        # statically (as one $CXX seen on a GPU host does) yields a library
-        # whose iostreams crash once torch is loaded.
-        subprocess.run(  # tpulint: allow(py-blocking)
-            ["cmake", "-S", "native", "-B", _BUILD_DIR, "-G", "Ninja",
-             "-DCMAKE_BUILD_TYPE=RelWithDebInfo",
-             "-DCMAKE_CXX_COMPILER=" + (shutil.which("g++") or "c++")],
-            cwd=_REPO, check=True, capture_output=True)
+def _gxx_copy() -> str:
+    """``native/build_torch/libbrpc_tpu.so``, rebuilt when missing or when
+    the native sources no longer match its stamp."""
+    digest = source_digest(_REPO, _native_sources(), _CXXFLAGS)
+    stamp = os.path.join(_TORCH_BUILD_DIR, "sources.sha256")
+    if not os.path.exists(_TORCH_LIB_PATH) or read_stamp(stamp) != digest:
+        _build_native_gxx()
+        write_stamp(stamp, digest)
+    return _TORCH_LIB_PATH
+
+
+def configure_command(build_dir: str = _BUILD_DIR) -> list:
+    """The cmake configure of ``build_dir``: the JAX package's arguments
+    and no others. A compiler other than the one in an existing cache
+    would make cmake delete that cache and regenerate the tree under the
+    JAX package's processes."""
+    return ["cmake", "-S", "native", "-B", build_dir, "-G", "Ninja",
+            "-DCMAKE_BUILD_TYPE=RelWithDebInfo"]
+
+
+def _have_cmake() -> bool:
+    return bool(shutil.which("cmake") and shutil.which("ninja"))
+
+
+def _resolve_library() -> str:
+    """The library to load (see the module docstring), building what is
+    missing. Call under the build lock."""
+    if not os.path.exists(_LIB_PATH) and _have_cmake():
+        subprocess.run(configure_command(_BUILD_DIR), cwd=_REPO,  # tpulint: allow(py-blocking)
+                       check=True, capture_output=True)
         subprocess.run(  # tpulint: allow(py-blocking)
             ["cmake", "--build", _BUILD_DIR, "--target", "brpc_tpu"],
             cwd=_REPO, check=True, capture_output=True)
-    else:
-        _build_native_gxx()
+    if os.path.exists(_LIB_PATH) and links_shared_libstdcxx(_LIB_PATH):
+        return _LIB_PATH
+    return _gxx_copy()
+
+
+def library_path() -> str:
+    """Path of the ``libbrpc_tpu.so`` the port loads, built first if
+    needed. Runs at the first ``lib()`` call, before any server, channel
+    or fiber exists."""
+    with file_lock(_LOCK_PATH):
+        return _resolve_library()
 
 
 def lib() -> ctypes.CDLL:
@@ -191,16 +246,11 @@ def links_shared_libstdcxx(path: str) -> bool:
 
 
 def _load() -> ctypes.CDLL:
-    if not os.path.exists(_LIB_PATH):
-        build_native()
-    elif not links_shared_libstdcxx(_LIB_PATH):
-        # Built by another toolchain (e.g. cmake with a $CXX that links
-        # libstdc++ statically): its iostreams crash beside torch's.
-        _build_native_gxx()
-    L = ctypes.CDLL(_LIB_PATH)
+    path = library_path()
+    L = ctypes.CDLL(path)
     if not hasattr(L, "tbrpc_registry_install"):
         raise RuntimeError(
-            f"{_LIB_PATH} predates the current C API; delete it and let "
+            f"{path} predates the current C API; delete it and let "
             "the next process rebuild it")
     L.tbrpc_server_create.restype = ctypes.c_void_p
     L.tbrpc_server_start.argtypes = [ctypes.c_void_p, ctypes.c_char_p]

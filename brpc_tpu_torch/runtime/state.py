@@ -5,6 +5,10 @@ momenta at start, and a version per name. ``state_from_numpy`` turns such
 a dict (numpy arrays — ``np.asarray`` of the JAX arrays) into the port's
 server state on a device; ``state_to_numpy`` is the reverse. Both servers
 seeded from the same numpy values therefore start from identical bits.
+
+``psstate_from_numpy``/``psstate_to_numpy`` do the same for the flagship
+step's ``models.tensor_service.PSState`` (w1, b1, w2, b2, momenta, stats),
+and ``layered_params_from_numpy`` for ``LayeredMLP``'s parameter dict.
 """
 
 from __future__ import annotations
@@ -56,3 +60,32 @@ def state_to_numpy(state: PSState):
     host = {k: v.detach().cpu().numpy() for k, v in state.params.items()}
     mom = {k: v.detach().cpu().numpy() for k, v in state.momenta.items()}
     return host, mom, dict(state.versions)
+
+
+_PSSTATE_FIELDS = ("w1", "b1", "w2", "b2", "m_w1", "m_w2", "stats")
+
+
+def psstate_from_numpy(values, device=None):
+    """A mapping (or NamedTuple) of numpy arrays with the fields of
+    ``tensor_service.PSState`` -> that PSState on ``device`` (default
+    CUDA), each tensor its own copy."""
+    from brpc_tpu_torch.models.tensor_service import PSState
+
+    if not isinstance(values, dict):
+        values = values._asdict()
+    dev = resolve_device(device)
+    return PSState(**{k: to_tensor(values[k], dev) for k in _PSSTATE_FIELDS})
+
+
+def psstate_to_numpy(state) -> Dict[str, np.ndarray]:
+    """``tensor_service.PSState`` -> ``{field: host numpy array}``."""
+    return {k: getattr(state, k).detach().cpu().numpy()
+            for k in _PSSTATE_FIELDS}
+
+
+def layered_params_from_numpy(params: Dict[str, object],
+                              device=None) -> Dict[str, torch.Tensor]:
+    """``{layer name: numpy weight}`` -> tensors on ``device`` (default
+    CUDA), for ``tensor_service.LayeredMLP``."""
+    dev = resolve_device(device)
+    return {k: to_tensor(v, dev) for k, v in params.items()}

@@ -4,19 +4,29 @@
     python3 chip_smoke.py [--seed N]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and a C++ compiler; builds
-native/build/libbrpc_tpu.so (if missing) and the port's CUDA kernels from
-the checkout. Phases, each fatal on failure:
+the native library (if missing) and the port's CUDA kernels from the
+checkout. Phases, each fatal on failure:
 
   1. set-up: the card's name and power limit, both builds and their times;
-  2. kernels vs plain PyTorch, on the card, at every distinct shape of the
-     main path (GPT-2 small) plus a ragged and a 1-D one: bit-identical;
-     times at the largest shape (``wte``) beside the bound and a library
-     call where one computes the same function;
-  3. the main path: a ParameterServer on the card holding the GPT-2 small
-     parameter set (124,439,808 fp32 values, random from --seed) serves
-     pulls and int8 pushes over tpu:// to clients in this process; the
-     results are held against a plain-PyTorch replay on the card, and the
-     kernels' launch counts show the path went through them.
+  2. kernels vs plain PyTorch, on the card: K1 and K2 at every distinct
+     shape of the parameter-server path (GPT-2 small) plus a ragged and a
+     1-D one, bit-identical; K3 (flash carry) at one Llama 3 8B attention
+     layer and at bench.py's flash point plus edge cases, within stated
+     tolerances; times at the largest shapes beside the bound and a
+     library call where one computes the same function;
+  3. the parameter-server path: a ParameterServer on the card holding the
+     GPT-2 small parameter set (124,439,808 fp32 values, random from
+     --seed) serves pulls and int8 pushes over tpu:// to clients in this
+     process; the results are held against a plain-PyTorch replay on the
+     card, and the kernels' launch counts show the path went through them;
+  4. the TensorService paths: train_step at the GPT-2 small MLP width
+     (3 steps, bit-identical to a plain replay, 2 K1 launches a step);
+     a 4-shard ring replay of the Llama layer through K3 (16 launches),
+     equal to one-shot flash attention; dryrun_multichip(1) on a one-rank
+     NCCL group.
+
+Every path runs with the launch counts set to 0 just before it and read
+just after.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero before
@@ -45,6 +55,21 @@ PUSHES = 3
 # Published device-memory rates (NVIDIA data sheets), bytes/s: the PCIe
 # part, else the SXM part ("NVIDIA H100 80GB HBM3").
 _HBM_RATE = (("H100 PCIe", 2.0e12), ("H100", 3.35e12))
+# Dense bf16 tensor-core peaks, FLOP/s (the same data sheets).
+_BF16_RATE = (("H100 PCIe", 756e12), ("H100", 989e12))
+# Meta's Llama 3 8B (meta-llama/Meta-Llama-3-8B config.json): 32 attention
+# heads, 8 kv heads, hidden 4096 (head dim 128), 8192 positions; one
+# attention layer at full context, causal.
+LLAMA3_8B_ATTN = {"b": 1, "h": 32, "hkv": 8, "s": 8192, "d": 128,
+                  "causal": True}
+# The flash point bench.py measured on the TPU (bench.py:3159), non-causal.
+BENCH_FLASH = {"b": 8, "h": 8, "hkv": 8, "s": 4096, "d": 128,
+               "causal": False}
+# GPT-2 small's MLP block (the parameter set of phase 3): 768 -> 3072 ->
+# 768, a batch of 8 x 1024 tokens.
+TRAIN_STEP = {"batch": 8 * 1024, "din": 768, "dh": 3072, "dout": 768}
+TRAIN_STEPS = 3
+RING_SHARDS = 4
 
 
 def fail(msg: str) -> None:
@@ -93,11 +118,11 @@ def smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def hbm_rate(name: str) -> float:
-    for key, rate in _HBM_RATE:
+def published_rate(name: str, table=_HBM_RATE) -> float:
+    for key, rate in table:
         if key in name:
             return rate
-    fail(f"no published memory rate for {name!r}")
+    fail(f"no published rate for {name!r}")
 
 
 def cuda_ms(fn, reps: int = 20, inner: int = 10, warm: int = 3) -> float:
@@ -133,8 +158,6 @@ def setup() -> dict:
     def build_native():
         t0 = time.monotonic()
         try:
-            if not os.path.exists(native._LIB_PATH):
-                native.build_native()
             native.lib()
         except Exception as e:  # noqa: BLE001 — reported as a phase fault
             errs.append(f"native build: {e}")
@@ -156,7 +179,8 @@ def setup() -> dict:
         t.join()
     if errs:
         fail("; ".join(errs))
-    log(f"native library ready in {out['native_build_s']:.1f} s "
+    log(f"native library {native.library_path()} ready in "
+        f"{out['native_build_s']:.1f} s "
         f"(built: {'yes' if out['native_build_s'] > 1 else 'cached'})")
     log(f"kernels built in {out['kernel_build_s']:.1f} s")
     ptxas = [ln.strip() for ln in str(_build.last_build.get("log", ""))
@@ -280,6 +304,176 @@ def _time_dequant(q, s, block, n, shape, rate) -> dict:
             "library_ms": None}
 
 
+# ---------------------------------------------------------------- phase 2, K3
+
+# K3 against its plain version run with the kernel's own k tile
+# (flash_attention.kernel_tile_k), so both step the running max and round
+# p at the same places. Tolerances: m to 1e-4 (the same fp32 dot products
+# summed in another order); l to 1e-4 relative; acc/l to 4e-3 for bf16
+# inputs (a p whose bf16 rounding flips with that order moves one key's
+# weight by one bf16 step, 2^-8) and 1e-4 for fp32; the finalized output in
+# the input type to that plus one step of its own rounding.
+FLASH_TOL = {"m": 1e-4, "l": 1e-4, "bf16": 4e-3, "f32": 1e-4}
+
+
+def _qkv(b, h, hkv, sq, d, dtype, seed, sk=None):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sk = sq if sk is None else sk
+    mk = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    return mk(b, h, sq, d), mk(b, hkv, sk, d), mk(b, hkv, sk, d)
+
+
+def _flash_case(label, q, k, v, carry, offsets, causal) -> float:
+    """Kernel vs plain on one input; returns max |acc/l| error."""
+    import torch
+
+    from brpc_tpu_torch.ops import flash_attention as fa
+
+    m, l, acc = carry
+    off = torch.tensor(offsets, dtype=torch.int32, device=q.device)
+    km, kl, ka = fa.flash_attention_carry(q, k, v, m, l, acc, off,
+                                          causal=causal)
+    rm, rl, ra = fa.flash_carry_reference(
+        q, k, v, m, l, acc, offsets, causal=causal,
+        block_k=fa.kernel_tile_k(q, k, v, acc))
+    torch.cuda.synchronize()
+    for t in (km, kl, ka):
+        if not bool(torch.isfinite(t).all()):
+            fail(f"K3 {label}: non-finite carries")
+    err_m = (km - rm).abs().max().item()
+    err_l = ((kl - rl).abs() / rl.abs().clamp_min(1e-30)).max().item()
+    ko, ro = (fa.flash_finalize(kl, ka, torch.float32),
+              fa.flash_finalize(rl, ra, torch.float32))
+    err_o = (ko - ro).abs().max().item()
+    tol_o = FLASH_TOL["bf16" if q.dtype == torch.bfloat16 else "f32"]
+    step = 2.0 ** -8 if q.dtype == torch.bfloat16 else 2.0 ** -23
+    out_k = fa.flash_finalize(kl, ka, q.dtype).float()
+    out_r = fa.flash_finalize(rl, ra, q.dtype).float()
+    err_out = ((out_k - out_r).abs() - step * out_r.abs()).max().item()
+    log(f"K3 {label}: q {tuple(q.shape)} kv {tuple(k.shape)} {q.dtype} "
+        f"offsets {offsets} causal={causal}: max err m {err_m:.3g} "
+        f"l(rel) {err_l:.3g} acc/l {err_o:.3g} out {err_out:.3g}")
+    if (err_m > FLASH_TOL["m"] or err_l > FLASH_TOL["l"] or err_o > tol_o
+            or err_out > tol_o):
+        fail(f"K3 {label} disagrees with its plain version beyond "
+             f"{FLASH_TOL}")
+    return err_o
+
+
+def _flash_timing(q, k, v, causal, rate, flops_rate) -> dict:
+    """kernel / plain / SDPA ms at a fresh-carry full pass, and the bound:
+    4*d FLOP per (query, legal key) pair (q.k and p.v) at the card's dense
+    bf16 peak, or the bytes (q, k, v and the carries in; carries out)."""
+    import torch
+    import torch.nn.functional as F
+
+    from brpc_tpu_torch.ops import flash_attention as fa
+
+    b, h, s, d = q.shape
+    m, l, acc = fa.flash_init(b, h, s, d, device=q.device)
+    ms = cuda_ms(lambda: fa.flash_attention_carry(q, k, v, m, l, acc, (0, 0),
+                                                  causal=causal),
+                 reps=10, inner=3)
+    tile = fa.kernel_tile_k(q, k, v, acc)
+    plain = cuda_ms(lambda: fa.flash_carry_reference(
+        q, k, v, m, l, acc, (0, 0), causal=causal, block_k=tile),
+        reps=3, inner=1, warm=1)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=k.shape[1] != h),
+        reps=10, inner=3)
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4.0 * b * h * d * pairs
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) + 2 * sum(
+        t.numel() * 4 for t in (m, l, acc))
+    t_ops, t_bytes = flops / flops_rate * 1e3, nbytes / rate * 1e3
+    return {"ms": ms, "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib, "flop": flops, "bytes": nbytes,
+            "tflops": flops / ms / 1e9}
+
+
+def flash_vs_plain(seed: int, rate: float, flops_rate: float) -> dict:
+    import torch
+
+    from brpc_tpu_torch.ops import flash_attention as fa
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs, timing = [], {}
+    for label, cfg in (("Llama 3 8B layer", LLAMA3_8B_ATTN),
+                       ("bench.py flash point", BENCH_FLASH)):
+        b, h, hkv, s, d = (cfg[x] for x in ("b", "h", "hkv", "s", "d"))
+        q, k, v = _qkv(b, h, hkv, s, d, bf16, seed)
+        errs.append(_flash_case(label, q, k, v,
+                                fa.flash_init(b, h, s, d, device="cuda"),
+                                (0, 0), cfg["causal"]))
+        timing[label] = _flash_timing(q, k, v, cfg["causal"], rate,
+                                      flops_rate)
+        del q, k, v
+    # fp32 on the SIMT path: first exactly the two calls dryrun_multichip(1)
+    # makes (the single-head ring, non-causal, and the GQA causal ring; sq
+    # and sk both under one tile, so keys past sk are masked with causal
+    # off), then wider ones.
+    for label, shape, causal in (
+            ("dryrun single-head ring", (2, 1, 1, 4, 8), False),
+            ("dryrun GQA causal ring", (2, 4, 2, 8, 8), True),
+            ("f32 d=8 s=64", (2, 4, 2, 64, 8), True),
+            ("f32 d=64 s=256", (2, 4, 4, 256, 64), False)):
+        b, h, hkv, s, d = shape
+        q, k, v = _qkv(b, h, hkv, s, d, f32, seed + 1)
+        errs.append(_flash_case(label, q, k, v,
+                                fa.flash_init(b, h, s, d, device="cuda"),
+                                (0, 0), causal))
+    # One ring hop of the Llama layer over 4 shards: rank 1 folds its own
+    # (diagonal) block into a carry that already holds rank 0's block —
+    # every q tile meets fully masked k tiles past the diagonal.
+    c = LLAMA3_8B_ATTN
+    sq = c["s"] // RING_SHARDS
+    q, k, v = _qkv(c["b"], c["h"], c["hkv"], sq, c["d"], bf16, seed + 2)
+    k0, v0 = _qkv(c["b"], c["hkv"], c["hkv"], sq, c["d"], bf16, seed + 3)[1:]
+    carry = fa.flash_carry_reference(
+        q, k0, v0, *fa.flash_init(c["b"], c["h"], sq, c["d"], device="cuda"),
+        (sq, 0), causal=True, block_k=64)
+    errs.append(_flash_case("ring hop, diagonal", q, k, v, carry, (sq, sq),
+                            True))
+    # A hop wholly after the queries: nothing folds, the carry comes back.
+    got = fa.flash_attention_carry(q, k, v, *carry, (sq, 2 * sq),
+                                   causal=True)
+    if not all(torch.equal(a, b) for a, b in zip(got, carry)):
+        fail("K3: a fully masked hop changed the carry")
+    log("K3 fully masked hop: carry unchanged (bit for bit)")
+    del q, k, v, k0, v0, carry, got
+    # Ragged q rows (not a multiple of the 64-row tile), both paths.
+    for label, shape, dtype in (("ragged bf16", (1, 8, 2, 1000, 128), bf16),
+                                ("ragged f32 d=40", (1, 4, 2, 1000, 40),
+                                 f32)):
+        b, h, hkv, s, d = shape
+        q, k, v = _qkv(b, h, hkv, s, d, dtype, seed + 4, sk=1024)
+        errs.append(_flash_case(label, q, k, v,
+                                fa.flash_init(b, h, s, d, device="cuda"),
+                                (24, 0), True))
+    main, second = timing["Llama 3 8B layer"], timing["bench.py flash point"]
+    for label, t in timing.items():
+        log(f"K3 {label}: kernel_ms={t['ms']:.4f} plain_ms="
+            f"{t['plain_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
+            f"({t['bound_by']}) library_ms(SDPA)={t['library_ms']:.4f}; "
+            f"{t['tflops']:.1f} TFLOP/s")
+    return {"name": "brpc_flash_carry", "ported": True, "route": "cuda",
+            "source": "brpc_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": "brpc_tpu/ops/flash_attention.py:47",
+            "launches": None, "max_abs_err": max(errs),
+            **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+            "shape": "Llama 3 8B attention layer, b1 h32 hkv8 s8192 d128 "
+                     "bf16 causal",
+            "second_shape": {"shape": "bench.py flash point, b8 h8 s4096 "
+                                      "d128 bf16 non-causal",
+                             **{key: second[key] for key in (
+                                 "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}}}
+
+
 # ---------------------------------------------------------------- phase 3
 
 def main_path(seed: int) -> dict:
@@ -337,7 +531,7 @@ def main_path(seed: int) -> dict:
         f"{ici.count('active=1')}")
     times = {}
     try:
-        for c in (fu.LAUNCHES, qz.LAUNCHES_INT8, qz.LAUNCHES_FP8):
+        for c in _counts().values():
             c.reset()
 
         def phase(label, fn, nbytes):
@@ -401,9 +595,7 @@ def main_path(seed: int) -> dict:
         rpulled = phase("pull_all raw (v3)", rcl.pull_all, total_bytes)
         fpulled = phase("pull_all fp8e4m3 (PullQ)", fcl.pull_all,
                         total_bytes)
-        launches = {"brpc_fused_momentum": fu.LAUNCHES.value,
-                    "brpc_dequant_int8": qz.LAUNCHES_INT8.value,
-                    "brpc_dequant_fp8e4m3": qz.LAUNCHES_FP8.value}
+        launches = {name: c.value for name, c in _counts().items()}
 
         state = ps.state()
         worst = {"int8": 0.0, "fp8e4m3": 0.0}
@@ -436,7 +628,7 @@ def main_path(seed: int) -> dict:
             f"{worst['fp8e4m3']:.3f})")
         want = {"brpc_fused_momentum": PUSHES * len(names),
                 "brpc_dequant_int8": (PUSHES + 1) * n_elig,
-                "brpc_dequant_fp8e4m3": n_elig}
+                "brpc_dequant_fp8e4m3": n_elig, "brpc_flash_carry": 0}
         log(f"launches on the main path: {launches} (expected {want})")
         # Also a check that the native library shares torch's libstdc++:
         # a dump formats every variable through iostreams.
@@ -479,6 +671,150 @@ def _within_bound(srv, got, cname: str, codec) -> float:
     return ratio
 
 
+# ---------------------------------------------------------------- phase 4
+
+def _replay_step(state, x, target):
+    """train_step's arithmetic with the plain momentum update: the same
+    autograd, then momentum_update_reference."""
+    import torch
+
+    from brpc_tpu_torch.models import tensor_service as ts
+    from brpc_tpu_torch.ops.fused_update import momentum_update_reference
+
+    leaves = [t.detach().requires_grad_() for t in
+              (state.w1, state.b1, state.w2, state.b2)]
+    with torch.enable_grad():
+        loss = ts._loss(state._replace(w1=leaves[0], b1=leaves[1],
+                                       w2=leaves[2], b2=leaves[3]),
+                        x, target)
+        g_w1, g_b1, g_w2, g_b2 = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        w1, m_w1 = momentum_update_reference(state.w1, state.m_w1, g_w1)
+        w2, m_w2 = momentum_update_reference(state.w2, state.m_w2, g_w2)
+        stats = 0.9 * state.stats + 0.1 * torch.mean(ts._forward(state, x),
+                                                     dim=0)
+        return ts.PSState(w1=w1, b1=state.b1 - 0.01 * g_b1, w2=w2,
+                          b2=state.b2 - 0.01 * g_b2, m_w1=m_w1, m_w2=m_w2,
+                          stats=stats), loss.detach()
+
+
+def _counts() -> dict:
+    from brpc_tpu_torch.ops import flash_attention as fa
+    from brpc_tpu_torch.ops import fused_update as fu
+    from brpc_tpu_torch.ops import quantize as qz
+
+    return {"brpc_fused_momentum": fu.LAUNCHES,
+            "brpc_dequant_int8": qz.LAUNCHES_INT8,
+            "brpc_dequant_fp8e4m3": qz.LAUNCHES_FP8,
+            "brpc_flash_carry": fa.LAUNCHES}
+
+
+def _drive(label: str, fn, want: dict) -> dict:
+    """Run one path with every launch count set to 0 just before it; fail
+    unless the counts read just after are ``want`` (names not in ``want``
+    must stay 0)."""
+    import torch
+
+    counters = _counts()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fn()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    got = {name: c.value for name, c in counters.items()}
+    expect = {name: want.get(name, 0) for name in counters}
+    log(f"{label}: {dt:.3f} s; launches {got}")
+    if got != expect:
+        fail(f"{label}: launch counts {got} != expected {expect}")
+    return {name: n for name, n in got.items() if n}
+
+
+def tensor_service_paths(seed: int) -> dict:
+    """train_step, the ring replay and dryrun_multichip(1); returns each
+    path's launch counts."""
+    import torch
+
+    from brpc_tpu_torch.models import tensor_service as ts
+    from brpc_tpu_torch.ops import flash_attention as fa
+    from brpc_tpu_torch.ops.ring_attention import hop_offsets
+
+    launches = {}
+    # -- train_step at the GPT-2 small MLP width
+    fn, (state0, x, t) = ts.flagship_entry(device="cuda", **TRAIN_STEP)
+    steps = []
+
+    def train():
+        state = state0
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t_step = time.monotonic()
+            state, loss = fn(state, x, t)
+            torch.cuda.synchronize()
+            steps.append((time.monotonic() - t_step, float(loss)))
+        steps.append(state)
+
+    launches["train_step"] = _drive(
+        f"train_step x{TRAIN_STEPS} {TRAIN_STEP}", train,
+        {"brpc_fused_momentum": 2 * TRAIN_STEPS})
+    state = steps.pop()
+    log("  step wall s / loss: " + ", ".join(
+        f"{dt:.4f} / {loss:.6f}" for dt, loss in steps))
+    ref = state0
+    for _ in range(TRAIN_STEPS):
+        ref, _loss = _replay_step(ref, x, t)
+    for f in ts.PSState._fields:
+        if not torch.equal(getattr(state, f), getattr(ref, f)):
+            fail(f"train_step {f} != the plain replay: max err "
+                 f"{(getattr(state, f) - getattr(ref, f)).abs().max()}")
+    log("  state after the steps == plain replay (bit for bit)")
+    del state0, x, t, state, ref
+
+    # -- ring replay of the Llama layer over RING_SHARDS sequence shards
+    c = LLAMA3_8B_ATTN
+    q, k, v = _qkv(c["b"], c["h"], c["hkv"], c["s"], c["d"],
+                   torch.bfloat16, seed)
+    n, sq = RING_SHARDS, c["s"] // RING_SHARDS
+    outs = []
+
+    def ring():
+        for rank in range(n):
+            qr = q[:, :, rank * sq:(rank + 1) * sq].contiguous()
+            m, l, acc = fa.flash_init(c["b"], c["h"], sq, c["d"],
+                                      device="cuda")
+            for hop in range(n):
+                q_off, kv_off = hop_offsets(rank, hop, n, sq)
+                kb = k[:, :, kv_off:kv_off + sq].contiguous()
+                vb = v[:, :, kv_off:kv_off + sq].contiguous()
+                m, l, acc = fa.flash_attention_carry(
+                    qr, kb, vb, m, l, acc, (q_off, kv_off), causal=True)
+            outs.append(fa.flash_finalize(l, acc, torch.float32))
+
+    launches["ring_replay"] = _drive(
+        f"ring replay, {n} shards x {n} hops", ring,
+        {"brpc_flash_carry": n * n})
+    ring_out = torch.cat(outs, dim=2)
+    m, l, acc = fa.flash_attention_carry(
+        q, k, v, *fa.flash_init(c["b"], c["h"], c["s"], c["d"],
+                                device="cuda"), (0, 0), causal=True)
+    one_shot = fa.flash_finalize(l, acc, torch.float32)
+    err = (ring_out - one_shot).abs().max().item()
+    # The ring folds the kv blocks in another order (its own diagonal
+    # first), so p is rounded to bf16 at other running maxima: acc/l to
+    # the 4e-3 of phase 2.
+    log(f"  ring == one-shot flash_attention: max err {err:.3g}")
+    if not err <= FLASH_TOL["bf16"]:
+        fail(f"ring replay != one-shot flash attention (max err {err})")
+    del q, k, v, outs, ring_out, one_shot, m, l, acc
+
+    # -- the dryrun entry point on a one-rank NCCL group
+    launches["dryrun_multichip(1)"] = _drive(
+        "dryrun_multichip(1), one-rank NCCL group",
+        lambda: ts.dryrun_multichip(1), {"brpc_flash_carry": 2})
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -499,27 +835,36 @@ def main() -> int:
         fail("nvidia-smi not found")
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
-    rate = hbm_rate(name)
+    rate = published_rate(name)
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; bound uses "
         f"{rate / 1e12:.2f} TB/s device memory")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    t_all = time.monotonic()
     t0 = time.monotonic()
     setup()
     log(f"== phase 1 (set-up) {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     rows = kernels_vs_plain(args.seed, rate)
+    rows.append(flash_vs_plain(args.seed, rate,
+                               published_rate(name, _BF16_RATE)))
     log(f"== phase 2 (kernels vs plain) {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
-    launches = main_path(args.seed)
-    log(f"== phase 3 (main path) {time.monotonic() - t0:.1f} s")
+    by_path = {"param_server": main_path(args.seed)}
+    log(f"== phase 3 (parameter-server path) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    by_path.update(tensor_service_paths(args.seed))
+    log(f"== phase 4 (TensorService paths) {time.monotonic() - t0:.1f} s")
     for r in rows:
-        r["launches"] = launches[r["name"]]
-    print(json.dumps({
-        "kernels": rows,
-        "not_ported": [{"name": "_carry_kernel",
-                        "replaces": "brpc_tpu/ops/flash_attention.py:47",
-                        "ported": False}],
-        "card": smi}), flush=True)
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()
+                                 if c.get(r["name"])}
+        r["launches"] = sum(r["launches_by_path"].values())
+        if not r["launches"]:
+            fail(f"{r['name']} was launched on no path")
+    log(f"== all phases {time.monotonic() - t_all:.1f} s")
+    log(smi)
+    print(json.dumps({"kernels": rows, "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": 1}}), flush=True)
     return 0

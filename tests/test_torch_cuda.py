@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from brpc_tpu_torch.ops import flash_attention as fa
 from brpc_tpu_torch.ops import fused_update as fu
 from brpc_tpu_torch.ops import quantize as qz
 from brpc_tpu_torch.runtime import codec
@@ -101,3 +102,142 @@ def test_server_on_the_card_goes_through_the_kernels(cuda):
     finally:
         cl.close()
         ps.stop()
+
+
+# K3 against its plain version, run with the kernel's own k tile so p is
+# rounded at the same running maxima. Tolerances: m to 1e-4 (the same fp32
+# dot products summed in another order), l to 1e-4 relative, acc/l to 4e-3
+# for bf16 (a p whose bf16 rounding flips with that order moves one key's
+# weight by 2^-8) and 1e-4 for fp32.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "b,h,hkv,sq,sk,d,causal,offsets", [
+        (1, 2, 2, 128, 128, 64, False, (0, 0)),
+        (1, 4, 2, 200, 256, 128, True, (0, 0)),      # ragged sq, GQA
+        (2, 4, 1, 64, 128, 128, True, (64, 0)),      # q after kv
+        (1, 2, 2, 128, 128, 128, True, (0, 64)),     # a fully masked tile
+        (1, 2, 2, 64, 64, 128, True, (0, 4096)),     # nothing attended
+        (2, 4, 2, 32, 32, 8, True, (0, 0)),          # the dryrun shape
+        (1, 2, 1, 48, 96, 256, False, (5, 7)),       # widest d
+        (1, 3, 3, 33, 70, 40, True, (20, 0)),        # odd everything
+    ])
+def test_flash_carry_kernel_matches_plain(cuda, dtype, b, h, hkv, sq, sk, d,
+                                          causal, offsets):
+    gen = torch.Generator(device=cuda).manual_seed(sq * 1000 + d)
+    q = torch.randn(b, h, sq, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, hkv, sk, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, hkv, sk, d, generator=gen, device=cuda).to(dtype)
+    m, l, acc = fa.flash_init(b, h, sq, d, device=cuda)
+    m, l, acc = fa.flash_carry_reference(  # a carry that is not fresh
+        q, k, v, m, l, acc, (0, 0), causal=False, block_k=sk)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    before = fa.LAUNCHES.value
+    km, kl, kacc = fa.flash_attention_carry(q, k, v, m, l, acc, off,
+                                            causal=causal)
+    assert fa.LAUNCHES.value == before + 1
+    # The same launch with the offsets by value.
+    im, il, iacc = fa.flash_attention_carry(q, k, v, m, l, acc, offsets,
+                                            causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(km, im) and torch.equal(kacc, iacc)
+    rm, rl, racc = fa.flash_carry_reference(
+        q, k, v, m, l, acc, offsets, causal=causal,
+        block_k=fa.kernel_tile_k(q, k, v, acc))
+    torch.testing.assert_close(km, rm, atol=1e-4, rtol=0)
+    torch.testing.assert_close(kl, rl, atol=1e-4, rtol=1e-4)
+    tol = 4e-3 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(kacc / kl, racc / rl, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,d,misalign,want", [
+    (torch.bfloat16, 128, False, 64), (torch.bfloat16, 64, False, 64),
+    (torch.bfloat16, 32, False, 32), (torch.float32, 128, False, 32),
+    (torch.bfloat16, 128, True, 32)])
+def test_kernel_tile_k_follows_the_kernels_dispatch(cuda, dtype, d, misalign,
+                                                    want):
+    base = torch.zeros(1 + 2 * 16 * d, device=cuda, dtype=dtype)
+    q = base[int(misalign):int(misalign) + 2 * 16 * d].view(1, 2, 16, d)
+    acc = fa.flash_init(1, 2, 16, d, device=cuda)[2]
+    assert fa.kernel_tile_k(q, q, q, acc) == want
+
+
+def test_flash_attention_kernel_matches_dense(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(2, 8, 256, 128, generator=gen, device=cuda)
+    k = torch.randn(2, 2, 256, 128, generator=gen, device=cuda)
+    v = torch.randn(2, 2, 256, 128, generator=gen, device=cuda)
+    out = fa.flash_attention(q, k, v, causal=True)
+    ref = fa.dense_attention_mh(q, k, v, causal=True)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_carry_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 2, 8, 16, device=cuda)
+    m, l, acc = fa.flash_init(1, 2, 8, 16, device=cuda)
+    with pytest.raises(TypeError, match="float16"):
+        fa.flash_attention_carry(x.half(), x.half(), x.half(), m, l, acc,
+                                 (0, 0))
+    with pytest.raises(TypeError, match="acc"):
+        fa.flash_attention_carry(x, x, x, m, l, acc.double(), (0, 0))
+    with pytest.raises(ValueError, match="contiguous"):
+        y = torch.zeros(1, 2, 16, 8, device=cuda).transpose(-1, -2)
+        fa.flash_attention_carry(y, y, y, m, l, acc, (0, 0))
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention_carry(x, x[:, :1].expand(1, 3, 8, 16).contiguous(),
+                                 x[:, :1].expand(1, 3, 8, 16).contiguous(),
+                                 m, l, acc, (0, 0))
+    wide = torch.zeros(1, 1, 8, 264, device=cuda)
+    wm, wl, wacc = fa.flash_init(1, 1, 8, 264, device=cuda)
+    with pytest.raises(ValueError, match="d <= 256"):
+        fa.flash_attention_carry(wide, wide, wide, wm, wl, wacc, (0, 0))
+
+
+# The ring over NCCL, one rank per card: each rank folds its resident
+# queries over the kv blocks sent around the ring; the result equals
+# one-card flash attention on the whole sequence (kv blocks fold in
+# another order, so p is rounded at other running maxima: acc/l to 4e-3,
+# plus one bf16 step of the output).
+RING_CARDS = 4
+RING_SHAPE = dict(b=1, h=32, hkv=8, s=8192, d=128)  # Llama 3 8B layer
+
+
+def _ring_inputs():
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    c = RING_SHAPE
+    mk = lambda h: torch.randn(c["b"], h, c["s"], c["d"], generator=gen,  # noqa: E731
+                               device="cuda").to(torch.bfloat16)
+    return mk(c["h"]), mk(c["hkv"]), mk(c["hkv"])
+
+
+def _nccl_ring_rank():
+    import torch.distributed as dist
+
+    from brpc_tpu_torch.models.tensor_service import dryrun_multichip
+    from brpc_tpu_torch.ops.ring_attention import ring_attention
+    from brpc_tpu_torch.parallel.mesh import make_mesh
+
+    rank = dist.get_rank()
+    mesh = make_mesh(client=1, shard=RING_CARDS)
+    q, k, v = (t.chunk(RING_CARDS, dim=2)[rank].contiguous()
+               for t in _ring_inputs())
+    before = fa.LAUNCHES.value
+    out = ring_attention(mesh, causal=True)(q, k, v)
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES.value - before
+    dryrun_multichip(RING_CARDS)
+    return out.float().cpu().numpy(), launches
+
+
+def test_ring_attention_over_nccl_matches_one_card(cuda):
+    if torch.cuda.device_count() < RING_CARDS:
+        pytest.skip(f"needs {RING_CARDS} CUDA cards")
+    from brpc_tpu_torch.ops import _build
+    from brpc_tpu_torch.parallel.launch import run_ranks
+
+    _build.load()  # build once here, before the ranks start
+    results = run_ranks(RING_CARDS, _nccl_ring_rank, device_type="cuda",
+                        timeout_s=300)
+    assert [n for _, n in results] == [RING_CARDS] * RING_CARDS
+    got = torch.from_numpy(np.concatenate([o for o, _ in results], axis=2))
+    ref = fa.flash_attention(*_ring_inputs(), causal=True).float().cpu()
+    assert ((got - ref).abs() <= 4e-3 + 2.0 ** -8 * ref.abs()).all()

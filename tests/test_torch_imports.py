@@ -55,13 +55,15 @@ def test_every_module_imports_with_jax_and_brpc_tpu_blocked():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'brpc_tpu_torch.runtime.param_server' in names\n"
+        "assert 'brpc_tpu_torch.models.tensor_service' in names\n"
+        "assert 'brpc_tpu_torch.ops.ring_attention' in names\n"
         "assert not any(m.split('.')[0] in ('jax', 'brpc_tpu')\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print(len(names))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 14
+    assert int(r.stdout.split()[-1]) >= 22
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
@@ -83,10 +85,37 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         resolve_device("cuda:0")
 
 
+@pytest.mark.parametrize("entry", ["flagship_entry", "init_state",
+                                   "LayeredMLP", "dryrun_multichip",
+                                   "flash_init", "psstate_from_numpy",
+                                   "layered_params_from_numpy"])
+def test_slice_two_entry_points_default_to_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device resolves")
+    from brpc_tpu_torch.models import tensor_service as ts
+    from brpc_tpu_torch.ops.flash_attention import flash_init
+    from brpc_tpu_torch.runtime import state
+
+    calls = {
+        "flagship_entry": lambda: ts.flagship_entry(),
+        "init_state": lambda: ts.init_state(torch.Generator(), 4, 8, 2),
+        "LayeredMLP": lambda: ts.LayeredMLP((4, 2)),
+        "dryrun_multichip": lambda: ts.dryrun_multichip(1),
+        "flash_init": lambda: flash_init(1, 1, 4, 8),
+        "psstate_from_numpy": lambda: state.psstate_from_numpy(
+            {f: np.zeros(2, np.float32) for f in ts.PSState._fields}),
+        "layered_params_from_numpy": lambda: state.layered_params_from_numpy(
+            {"layer00": np.zeros((2, 2), np.float32)}),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+
+
 def test_cpu_tensors_never_build_or_load_the_kernels():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: another test may load the kernels")
     from brpc_tpu_torch.ops import _build
+    from brpc_tpu_torch.ops import flash_attention as fa
     from brpc_tpu_torch.ops.fused_update import fused_momentum_update
     from brpc_tpu_torch.ops.quantize import dequantize_blocks
 
@@ -94,4 +123,10 @@ def test_cpu_tensors_never_build_or_load_the_kernels():
     fused_momentum_update(x, x, x)
     dequantize_blocks(torch.ones(300, dtype=torch.int8), torch.ones(2),
                       block=256, n=300, shape=(300,))
+    q = torch.ones(1, 2, 8, 4)
+    launches = fa.LAUNCHES.value
+    fa.flash_attention_carry(q, q, q, *fa.flash_init(1, 2, 8, 4,
+                                                     device="cpu"),
+                             torch.zeros(2, dtype=torch.int32), causal=True)
+    assert fa.LAUNCHES.value == launches
     assert _build._lib is None  # no nvcc looked for, nothing loaded

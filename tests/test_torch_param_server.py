@@ -204,7 +204,7 @@ def test_native_library_links_libstdcxx_dynamically(tmp_path):
     # The port shares one process with torch, so it only loads a library
     # that takes libstdc++ from the process; a statically linked one is not.
     tnative.lib()
-    assert tnative.links_shared_libstdcxx(tnative._LIB_PATH)
+    assert tnative.links_shared_libstdcxx(tnative.library_path())
     src = tmp_path / "s.cpp"
     src.write_text('#include <iostream>\nvoid f() { std::cout << 1; }\n')
     so = tmp_path / "libs.so"

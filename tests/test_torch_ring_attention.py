@@ -1,0 +1,336 @@
+"""The port's mesh, collectives, ring attention and sharded step on 4 gloo
+ranks, against the JAX package on 4 virtual CPU devices.
+
+One spawn of 4 ranks (``parallel.launch.run_ranks``; the ranks import
+neither jax nor the suite's conftest: this module imports jax only inside
+the fixture that runs the JAX side) computes, from the same numpy inputs:
+
+- every collective of ``parallel/collectives.py`` — gloo takes all five
+  (all_gather_into_tensor, all_reduce, reduce_scatter_tensor,
+  batch_isend_irecv, all_to_all_single), so none is left out here;
+- ``ring_attention`` causal and not, GQA, the 3-D form and extreme scores
+  (the cases of tests/test_flash_attention.py:58-95 and
+  tests/test_data_plane.py:150-186);
+- ``make_sharded_train_step`` on a 2x2 mesh, with the reference's
+  n_shard-times gradient of w1, b1 and w2 pinned;
+- ``dryrun_multichip(4, device="cpu")`` inside the group.
+
+Tolerances: collectives move or sum the same fp32 values — exact, except
+sums of two fp32 values (exact too). Ring attention 3e-5 (fp32, the JAX
+tests' own). The sharded step 2e-6 absolute on the state: both packages
+round the same bf16 operands and gradients; the fp32 sums run in another
+order.
+"""
+
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+
+from brpc_tpu_torch.ops.ring_attention import hop_offsets
+from brpc_tpu_torch.parallel.launch import run_ranks
+
+N = 4
+RING_CASES = {
+    # name: (q shape, kv heads or None for 3-D, causal, block, seed, shards)
+    "mh": ((2, 4, 128, 32), 4, False, 32, 11, 4),
+    "mh_causal": ((2, 4, 128, 32), 4, True, 32, 11, 4),
+    "gqa_causal": ((1, 8, 64, 32), 2, True, 16, 13, 4),
+    "single_head_3d": ((2, 64, 16), None, False, 1024, 5, 2),
+    "data_plane_3d": ((2, 32, 16), None, False, 1024, 7, 4),
+}
+STEP_DIMS = dict(din=16, dh=32, dout=8, batch=16)
+FIELDS = ("w1", "b1", "w2", "b2", "m_w1", "m_w2", "stats")
+
+
+def _inputs():
+    rng = np.random.default_rng(2024)
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    inp = {"gather": f32(4, 3), "reduce": f32(8, 4), "rs": f32(8, 4),
+           "stream": f32(4, 2), "a2a": np.arange(32, dtype=np.float32
+                                                 ).reshape(4, 8)}
+    for name, (shape, hkv, _c, _b, seed, _n) in RING_CASES.items():
+        r = np.random.default_rng(seed)
+        kv_shape = shape if hkv is None else (shape[0], hkv, *shape[2:])
+        inp[name] = (r.standard_normal(shape).astype(np.float32),
+                     r.standard_normal(kv_shape).astype(np.float32),
+                     r.standard_normal(kv_shape).astype(np.float32))
+    # Extreme scores (tests/test_data_plane.py): one shard's keys dominate,
+    # so the running max jumps mid-ring.
+    q = np.full((1, 32, 8), 3.0, np.float32)
+    k = np.concatenate([np.full((1, 8, 8), x, np.float32)
+                        for x in (-5.0, 0.1, 9.0, 0.1)], axis=1)
+    v = np.tile(np.arange(32, dtype=np.float32)[None, :, None], (1, 1, 8))
+    inp["extreme"] = (q, k, v)
+    d = STEP_DIMS
+    inp["state"] = {
+        "w1": f32(d["din"], d["dh"]) / np.float32(4.0),
+        "b1": f32(d["dh"]) * np.float32(0.1),
+        "w2": f32(d["dh"], d["dout"]) / np.float32(6.0),
+        "b2": f32(d["dout"]) * np.float32(0.1),
+        "m_w1": f32(d["din"], d["dh"]) * np.float32(0.01),
+        "m_w2": f32(d["dh"], d["dout"]) * np.float32(0.01),
+        "stats": f32(d["dout"])}
+    inp["x"] = f32(d["batch"], d["din"])
+    inp["t"] = f32(d["batch"], d["dout"])
+    return inp
+
+
+def _rank_body(inp):
+    """Runs on each of the 4 ranks; returns this rank's numpy results."""
+    import torch.distributed as dist
+
+    from brpc_tpu_torch.models import tensor_service as ts
+    from brpc_tpu_torch.ops.ring_attention import ring_attention
+    from brpc_tpu_torch.parallel import collectives as col
+    from brpc_tpu_torch.parallel.mesh import make_mesh, ring_mesh
+    from brpc_tpu_torch.runtime.state import psstate_from_numpy
+
+    rank = dist.get_rank()
+    ci, si = rank // 2, rank % 2  # 2x2 mesh: arange(4).reshape(2, 2)
+    mesh22 = make_mesh()
+    mesh14 = make_mesh(client=1, shard=4)
+    ring = ring_mesh()
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    chunk = lambda a, n, i, dim=0: np.array_split(a, n, axis=dim)[i]  # noqa: E731
+    out = {"mesh22": (mesh22["client"].size(), mesh22["shard"].size())}
+    out["gather"] = col.fanout_gather(mesh22, "shard")(
+        t(chunk(inp["gather"], 2, si))).numpy()
+    out["reduce"] = col.fanout_reduce(mesh22, "client")(
+        t(chunk(inp["reduce"], 2, ci))).numpy()
+    out["rs"] = col.reduce_scatter(mesh22, "client")(
+        t(chunk(inp["rs"], 2, ci))).numpy()
+    for hops in (1, 3, 4):
+        out[f"stream{hops}"] = col.ring_stream(ring, hops=hops)(
+            t(chunk(inp["stream"], N, rank))).numpy()
+    out["a2a"] = col.all_to_all_reshard(ring)(
+        t(chunk(inp["a2a"], N, rank))).numpy()
+
+    for name, (_s, hkv, causal, block, _seed, n) in RING_CASES.items():
+        mesh, idx = (mesh14, rank) if n == 4 else (mesh22, si)
+        dim = -2 if hkv is not None else 1
+        q, k, v = (t(chunk(a, n, idx, dim)) for a in inp[name])
+        out[name] = ring_attention(mesh, causal=causal, block_q=block,
+                                   block_k=block)(q, k, v).numpy()
+    q, k, v = (t(chunk(a, N, rank, 1)) for a in inp["extreme"])
+    out["extreme"] = ring_attention(mesh14)(q, k, v).numpy()
+
+    state = ts.shard_state(psstate_from_numpy(inp["state"], device="cpu"),
+                           mesh22)
+    x = ts.shard_batch(t(inp["x"]), mesh22)
+    tgt = ts.shard_batch(t(inp["t"]), mesh22)
+    new, loss = ts.make_sharded_train_step(mesh22)(state, x, tgt)
+    out["step"] = {f: getattr(new, f).numpy() for f in FIELDS}
+    out["loss"] = float(loss)
+
+    ts.dryrun_multichip(N, device="cpu")
+    out["dryrun"] = True
+    return out
+
+
+def _jax_side(inp):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from brpc_tpu.models import tensor_service as jts
+    from brpc_tpu.ops.ring_attention import ring_attention
+    from brpc_tpu.parallel import collectives as col
+    from brpc_tpu.parallel.mesh import (CLIENT_AXIS, SHARD_AXIS, make_mesh,
+                                        ring_mesh)
+
+    devs = jax.devices()[:N]
+    mesh22 = make_mesh(devs, client=2, shard=2)
+    mesh14 = make_mesh(devs, client=1, shard=4)
+    ring = ring_mesh(devs)
+    a = lambda x: np.asarray(x)  # noqa: E731
+    out = {"gather": a(col.fanout_gather(mesh22, SHARD_AXIS)(inp["gather"])),
+           "reduce": a(col.fanout_reduce(mesh22, CLIENT_AXIS)(inp["reduce"])),
+           "rs": a(col.reduce_scatter(mesh22, CLIENT_AXIS)(inp["rs"])),
+           "a2a": a(col.all_to_all_reshard(ring, SHARD_AXIS)(inp["a2a"]))}
+    for hops in (1, 3, 4):
+        out[f"stream{hops}"] = a(col.ring_stream(ring, hops=hops)(
+            inp["stream"]))
+    for name, (_s, _hkv, causal, block, _seed, n) in RING_CASES.items():
+        mesh = mesh14 if n == 4 else make_mesh(devs[:2], client=1, shard=2)
+        out[name] = a(ring_attention(mesh, causal=causal, block_q=block,
+                                     block_k=block)(*inp[name]))
+    out["extreme"] = a(ring_attention(mesh14)(*inp["extreme"]))
+
+    specs = jts.PSState(
+        w1=P(None, SHARD_AXIS), b1=P(SHARD_AXIS), w2=P(SHARD_AXIS, None),
+        b2=P(), m_w1=P(None, SHARD_AXIS), m_w2=P(SHARD_AXIS, None),
+        stats=P())
+    state = jts.PSState(**{f: jnp.asarray(inp["state"][f]) for f in FIELDS})
+    state = jax.tree.map(lambda x, s: jax.device_put(
+        x, NamedSharding(mesh22, s)), state, specs)
+    batch = NamedSharding(mesh22, P(CLIENT_AXIS, None))
+    new, loss = jts.make_sharded_train_step(mesh22)(
+        state, jax.device_put(inp["x"], batch),
+        jax.device_put(inp["t"], batch))
+    out["step"] = {f: a(getattr(new, f)) for f in FIELDS}
+    out["loss"] = float(loss)
+
+    # The single-device gradient of the same loss, per client half of the
+    # batch (each rounded to bf16 where JAX rounds it), averaged as the
+    # client fan-in averages them.
+    def loss_fn(w1, b1, w2, b2, x, t):
+        h = jax.nn.relu(jnp.dot(x.astype(jnp.bfloat16),
+                                w1.astype(jnp.bfloat16),
+                                preferred_element_type=jnp.float32) + b1)
+        y = jnp.dot(h.astype(jnp.bfloat16), w2.astype(jnp.bfloat16),
+                    preferred_element_type=jnp.float32) + b2
+        return jnp.mean(jnp.square(y - t))
+
+    st = inp["state"]
+    halves = [jax.grad(loss_fn, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(st[f]) for f in ("w1", "b1", "w2", "b2")),
+        jnp.asarray(xh), jnp.asarray(th))
+        for xh, th in zip(np.split(inp["x"], 2), np.split(inp["t"], 2))]
+    out["grad_single"] = {
+        f: (a(g0) + a(g1)) / np.float32(2.0)
+        for f, g0, g1 in zip(("w1", "b1", "w2", "b2"), *halves)}
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs():
+    inp = _inputs()
+    # The ranks run in their own processes while this one runs the JAX side.
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        port = pool.submit(run_ranks, N, _rank_body, (inp,),
+                           device_type="cpu", timeout_s=240)
+        jax_out = _jax_side(inp)
+        return inp, port.result(), jax_out
+
+
+def _assemble(port, key, n, dim, index):
+    """Concatenate rank results along ``dim`` in the order of their index
+    on the sharded axis (``index(rank)``), from the ranks with client 0."""
+    parts = {}
+    for rank, res in enumerate(port):
+        parts.setdefault(index(rank), res[key])
+    return np.concatenate([parts[i] for i in range(n)], axis=dim)
+
+
+def test_make_mesh_factors_four_ranks_two_by_two(runs):
+    _inp, port, _jax = runs
+    assert all(res["mesh22"] == (2, 2) for res in port)
+
+
+@pytest.mark.parametrize("key", ["gather", "reduce"])
+def test_replicating_collectives_match_jax(runs, key):
+    _inp, port, jax_out = runs
+    for res in port:
+        np.testing.assert_array_equal(res[key], jax_out[key])
+
+
+def test_reduce_scatter_matches_jax(runs):
+    _inp, port, jax_out = runs
+    for rank, res in enumerate(port):
+        ci = rank // 2
+        np.testing.assert_array_equal(res["rs"], jax_out["rs"][2 * ci:
+                                                               2 * ci + 2])
+
+
+@pytest.mark.parametrize("hops", [1, 3, 4])
+def test_ring_stream_matches_jax(runs, hops):
+    inp, port, jax_out = runs
+    got = np.concatenate([res[f"stream{hops}"] for res in port])
+    np.testing.assert_array_equal(got, jax_out[f"stream{hops}"])
+    np.testing.assert_array_equal(got, np.roll(inp["stream"], hops, axis=0))
+
+
+def test_all_to_all_reshard_matches_jax(runs):
+    _inp, port, jax_out = runs
+    got = np.concatenate([res["a2a"] for res in port])
+    assert got.shape == (16, 2)
+    np.testing.assert_array_equal(got, jax_out["a2a"])
+
+
+@pytest.mark.parametrize("name", sorted(RING_CASES) + ["extreme"])
+def test_ring_attention_matches_jax_and_dense(runs, name):
+    inp, port, jax_out = runs
+    from brpc_tpu_torch.ops.flash_attention import dense_attention_mh
+    from brpc_tpu_torch.ops.ring_attention import dense_attention_reference
+
+    if name == "extreme":
+        n, dim, causal, three_d = 4, 1, False, True
+    else:
+        shape, hkv, causal, _b, _s, n = RING_CASES[name]
+        three_d = hkv is None
+        dim = 1 if three_d else 2
+    idx = (lambda r: r) if n == 4 else (lambda r: r % 2)
+    got = _assemble(port, name, n, dim, idx)
+    for res in port:  # client replicas agree
+        assert res[name].shape == np.array_split(got, n, axis=dim)[0].shape
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, jax_out[name], atol=3e-5, rtol=3e-5)
+    q, k, v = (torch.from_numpy(a) for a in inp[name])
+    dense = (dense_attention_reference(q, k, v) if three_d
+             else dense_attention_mh(q, k, v, causal=causal))
+    np.testing.assert_allclose(got, dense.numpy(), atol=3e-5, rtol=3e-5)
+
+
+_SHARD_DIM = {"w1": 1, "b1": 0, "m_w1": 1, "w2": 0, "m_w2": 0}
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_sharded_step_state_matches_jax(runs, field):
+    _inp, port, jax_out = runs
+    if field in _SHARD_DIM:
+        got = _assemble([r["step"] for r in port], field, 2,
+                        _SHARD_DIM[field], lambda r: r % 2)
+        for rank, res in enumerate(port):  # client replicas agree
+            other = port[rank ^ 2]["step"][field]
+            np.testing.assert_array_equal(res["step"][field], other)
+    else:
+        got = port[0]["step"][field]
+        for res in port:
+            np.testing.assert_array_equal(res["step"][field], got)
+    np.testing.assert_allclose(got, jax_out["step"][field], atol=2e-6,
+                               rtol=1e-5)
+
+
+def test_sharded_step_loss_matches_jax(runs):
+    _inp, port, jax_out = runs
+    assert len({res["loss"] for res in port}) == 1
+    np.testing.assert_allclose(port[0]["loss"], jax_out["loss"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("param,factor", [("w1", 2.0), ("b1", 2.0),
+                                          ("w2", 2.0), ("b2", 1.0)])
+def test_sharded_step_gradient_is_n_shard_times_for_all_but_b2(runs, param,
+                                                               factor):
+    # The reference differentiates through psum over `shard`, which JAX
+    # transposes into another psum: w1, b1 and w2 move by n_shard (= 2)
+    # times the single-device gradient, b2 by 1x. The port does the same.
+    inp, port, jax_out = runs
+    st = inp["state"]
+    if param in ("w1", "w2"):
+        m_new = _assemble([r["step"] for r in port], "m_" + param, 2,
+                          _SHARD_DIM[param], lambda r: r % 2)
+        applied = m_new - np.float32(0.9) * st["m_" + param]
+    else:
+        new = (_assemble([r["step"] for r in port], param, 2, 0,
+                         lambda r: r % 2) if param == "b1"
+               else port[0]["step"][param])
+        applied = (st[param] - new) / np.float32(0.01)
+    single = jax_out["grad_single"][param]
+    np.testing.assert_allclose(applied, factor * single, atol=1e-6,
+                               rtol=1e-4)
+
+
+def test_dryrun_multichip_ran_inside_the_group(runs):
+    _inp, port, _jax = runs
+    assert all(res["dryrun"] for res in port)
+
+
+@pytest.mark.parametrize("rank,hop,n,want", [
+    (0, 0, 4, (0, 0)), (0, 1, 4, (0, 48)), (3, 1, 4, (48, 32)),
+    (1, 3, 4, (16, 32)), (1, 1, 2, (16, 0))])
+def test_hop_offsets(rank, hop, n, want):
+    # After `hop` rotations rank r holds rank (r - hop) mod n's kv block
+    # (16 rows per shard here).
+    assert hop_offsets(rank, hop, n, 16) == want
