@@ -23,29 +23,43 @@
 // pair and loops over the k tiles itself, reading the carries once and
 // writing them once. Two kernels:
 //
-// - flash_tc_kernel<D> (bf16, d = 64 or 128, 16-byte aligned operands): a
-//   64-row q tile over 4 warps, 64-key tiles double-buffered in shared
-//   memory with cp.async, q.k^T and p.v on the tensor cores with
-//   mma.sync m16n8k16 (bf16 in, fp32 accumulate) fed by ldmatrix, rows
-//   padded by 8 elements so ldmatrix is free of bank conflicts. The score
-//   tile and the carries live in registers; p is rounded to bf16 when it
-//   is packed into the A operand of p.v, as the TPU kernel rounds it with
-//   p.astype(v.dtype). The causal skip trims the k loop to the tiles whose
-//   first key is not after the tile's last query, and q tiles are issued
-//   heaviest first so the diagonal's tail does not idle the card.
+// - flash_ws_kernel<D> (bf16, d = 64 or 128, 16-byte aligned operands):
+//   warp-specialised for Hopper. 384 threads in 3 warpgroups own a 128-row
+//   q tile. Warpgroup 0 is the producer: one thread issues TMA loads
+//   (cp.async.bulk.tensor over 3-D tensor maps [b*h, s, d] with 128-byte
+//   swizzle, so rows past sq or sk read as zeros) of Q once and of 128-key
+//   K/V tiles into a ring of stages, each stage with a full mbarrier (the
+//   transaction bytes) and an empty one (the consumers' release); it gives
+//   its registers away with setmaxnreg.dec. Warpgroups 1 and 2 take them
+//   (setmaxnreg.inc) and own 64 q rows each: s = q.k^T is one
+//   wgmma.mma_async m64n128k16 per 16 of d, both operands in shared
+//   memory; acc += p.v takes p from registers, rounded to bf16 exactly
+//   where the TPU kernel's p.astype(v.dtype) rounds it, and V from shared
+//   memory (MN-major), in fp32 registers that hold the acc carry from load
+//   to store. Within a warpgroup the next tile's q.k^T is issued before
+//   this tile's softmax and waited for with wgmma.wait_group; between the
+//   two warpgroups named barriers take turns at issuing, so one
+//   warpgroup's exponentials run under the other's products. The mask is
+//   tested per element only on tiles that need it (a causal diagonal, the
+//   ragged last tile of sk). p = 2^(s*c - m*c) with c = scale*log2(e), one
+//   FFMA and ex2; m stays max(s*scale), the same bits as scaling first.
+//   Both warpgroups walk the block's live tiles (a tile wholly masked for
+//   one of them changes nothing: p = 0, the correction is exactly 1).
 // - flash_simt_kernel<T> (fp32 or bf16, any d <= 256): the same algorithm
 //   on plain fp32 arithmetic, 16 q rows by 32-key tiles in shared memory,
 //   for the shapes the tensor-core kernel does not take.
 //
-// Global positions are q_off + row and kv_off + col, with the two offsets
-// read from a device int32[2] (as the TPU kernel reads them from SMEM) or
+// q tiles are issued heaviest first, and the q heads of one GQA group go
+// to neighbouring blocks so their K/V tiles are read from L2. Global
+// positions are q_off + row and kv_off + col, with the two offsets read
+// from a device int32[2] (as the TPU kernel reads them from SMEM) or
 // passed by value. Keys past sk are masked like causal ones; rows past sq
-// are computed on zeros and never stored. exp is expf, not __expf.
-// A wgmma/TMA design (FA3-style) is the way to the bound; this kernel is
-// the first, right one.
+// are computed on zeros and never stored.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -102,268 +116,436 @@ __device__ __forceinline__ bool legal(const Params& p, int q_off, int kv_off,
 
 // ------------------------------------------------------------ tensor cores
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0 bytes read: the 16 are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct WsShape {
+  static constexpr int kBM = 128;      // q rows per block: 2 consumers x 64
+  static constexpr int kBN = 128;      // keys per tile
+  static constexpr int kThreads = 384; // producer + 2 consumer warpgroups
+  static constexpr int kStages = 2;    // tiles in each of the K and V rings
+  static constexpr int kPanels = D / 64;          // 64-column (128-byte) panels
+  static constexpr int kPanelBytes = 128 * 128;   // 128 rows x 128 bytes
+  static constexpr int kTileBytes = kPanels * kPanelBytes;  // Q, K or V tile
+  static constexpr int kBarOff = (1 + 2 * kStages) * kTileBytes;
+  // + the barriers (q; full and empty of each K and V stage) + slack to
+  // align the base to 1024.
+  static constexpr int kSmem = kBarOff + 8 * (1 + 4 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 3-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// Named barriers 1 and 2 over the 256 consumer threads: the two consumer
+// warpgroups' turns at issuing their products.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout B128.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo) << 16) |
+         (static_cast<uint64_t>(sbo) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
+// Keeps the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the wait that ends it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
+template <int N>
+__device__ __forceinline__ void fence_regs(unsigned (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// c += a . b for a 16x16 bf16 A (row major), a 16x8 bf16 B, fp32 c.
-__device__ __forceinline__ void mma16816(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
+#define BRPC_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define BRPC_F16(i) BRPC_F4(i), BRPC_F4(i + 4), BRPC_F4(i + 8), BRPC_F4(i + 12)
+
+// d (+)= a . b^T, a 64x16 and b 128x16 bf16 in shared memory (K-major),
+// d 64x128 fp32 in the accumulator layout; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : BRPC_F16(0), BRPC_F16(16), BRPC_F16(32), BRPC_F16(48)
+      : "l"(da), "l"(db), "r"(scale_d));
 }
+
+// d[OFF..OFF+31] += a . b, a 64x16 bf16 in registers (4 x bf16x2 a
+// thread), b 16x64 bf16 in shared memory, MN-major (transposed).
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[N],
+                                             const unsigned* a, uint64_t db) {
+  static_assert(OFF + 32 <= N, "accumulator slice out of range");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : BRPC_F16(OFF), BRPC_F16(OFF + 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef BRPC_F16
+#undef BRPC_F4
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-template <int D>
-struct TcShape {
-  static constexpr int kBM = 64;      // q rows per block: 4 warps x 16
-  static constexpr int kBN = 64;      // keys per tile
-  static constexpr int kThreads = 128;
-  static constexpr int kLd = D + 8;   // padded smem row (elements)
-  // q tile + 2 stages of (k tile, v tile), bf16.
-  static constexpr int kSmem = (kBM + 4 * kBN) * kLd * 2;
-};
+// 2^x on the special function unit (ex2.approx.ftz: relative error
+// about 2^-22, results below 2^-126 flushed to 0; 2^-inf is 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-// rows x D bf16 rows [row0, row0 + rows) of a [n_rows, D] matrix into smem;
-// rows at or past n_rows read as zeros.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* sm,
-                                          const __nv_bfloat16* g, int row0,
-                                          int n_rows, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kLd = TcShape<D>::kLd;
-  for (int c = tid; c < ROWS * kChunks; c += TcShape<D>::kThreads) {
-    const int r = c / kChunks;
-    const int cc = c % kChunks;
-    const int gr = row0 + r;
-    const bool ok = gr < n_rows;
-    cp_async16(sm + r * kLd + cc * 8,
-               g + static_cast<size_t>(ok ? gr : 0) * D + cc * 8, ok);
+// The online softmax of one 64x128 score tile in the accumulator layout
+// (element i of a thread: row r_lo + 8*((i>>1)&1), column k0 + 8*(i>>2) +
+// 2t + (i&1)). s holds q.k^T unscaled on entry and p (fp32) on exit; the
+// carries m, l step, and corr is the factor acc must take. MASK tests
+// every element (a causal diagonal or the ragged last tile of sk).
+template <bool MASK>
+__device__ __forceinline__ void online_softmax(
+    float (&s)[64], float (&m_row)[2], float (&l_row)[2], float (&corr)[2],
+    const Params& p, int q_off, int kv_off, int r_lo, int k0, int t) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if (MASK) {
+      const int col = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+      const int row = r_lo + ((i >> 1) & 1) * 8;
+      if (!legal(p, q_off, kv_off, row, col)) s[i] = -INFINITY;
+    }
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  }
+  float mc[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // max(s * scale) == max(s) * scale: a positive scale keeps the order.
+    float m_new = fmaxf(m_row[r], mx[r] * p.scale);
+    if (MASK) m_new = fmaxf(m_new, kNeg);  // a masked lane scores kNeg
+    corr[r] = ex2((m_row[r] - m_new) * kLog2e);
+    m_row[r] = m_new;
+    mc[r] = m_new * kLog2e;
+  }
+  const float c = p.scale * kLog2e;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    // exp(s*scale - m) as one FFMA and ex2; a masked lane (-inf) gives 0.
+    s[i] = ex2(fmaf(s[i], c, -mc[(i >> 1) & 1]));
+    rsum[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
+    rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
+    l_row[r] = l_row[r] * corr[r] + rsum[r];
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(128) flash_tc_kernel(Params p) {
-  using S = TcShape<D>;
-  constexpr int kBM = S::kBM, kBN = S::kBN, kLd = S::kLd;
-  constexpr int kKD = D / 16;   // k16 steps of q.k^T
-  constexpr int kND = D / 8;    // n8 blocks of the output
-  constexpr int kNN = kBN / 8;  // n8 blocks of the score tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kBM * kLd;      // 2 stages
-  __nv_bfloat16* sV = sK + 2 * kBN * kLd;  // 2 stages
+__global__ void __launch_bounds__(384, 1)
+    flash_ws_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, Params p) {
+  using S = WsShape<D>;
+  constexpr int kBM = S::kBM, kBN = S::kBN, kStages = S::kStages;
+  constexpr int kPanels = S::kPanels, kPanelBytes = S::kPanelBytes;
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzled tiles need 1024-byte alignment (the swizzle atom).
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + S::kTileBytes;          // K ring
+  const uint32_t sV = sK + kStages * S::kTileBytes;  // V ring
+  // Barriers: q, then for each ring a full (TMA bytes) and an empty (one
+  // arrival per consumer warp) barrier per stage.
+  const uint32_t bar_q = sQ + S::kBarOff;
+  const uint32_t full_k = bar_q + 8, full_v = full_k + 8 * kStages;
+  const uint32_t empty_k = full_v + 8 * kStages;
+  const uint32_t empty_v = empty_k + 8 * kStages;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * kBM;  // heaviest tiles first
-  const int bh = blockIdx.y;
+  // Causal: heaviest q tiles first, and within one the heads of a GQA
+  // group side by side, so their K/V tiles come from L2. Not causal (all
+  // tiles equally heavy): every q tile of one head, then the next head of
+  // its group, so the blocks in flight share K/V tiles.
+  const int n_qt = (p.sq + kBM - 1) / kBM;
+  const int n_bh = gridDim.x / n_qt;
+  const int idx = blockIdx.x;
+  const int rank = p.causal ? idx / n_bh : idx % n_qt;
+  const int bh = p.causal ? idx % n_bh : idx / n_qt;
+  const int m0 = (n_qt - 1 - rank) * kBM;
   const int b = bh / p.h, hh = bh % p.h;
-  const int kvh = hh / (p.h / p.hkv);
+  const int kv_bh = b * p.hkv + hh / (p.h / p.hkv);
   int q_off, kv_off;
   read_offsets(p, &q_off, &kv_off);
-
-  const __nv_bfloat16* Q =
-      static_cast<const __nv_bfloat16*>(p.q) + static_cast<size_t>(bh) * p.sq * D;
-  const size_t kv_base = static_cast<size_t>(b * p.hkv + kvh) * p.sk * D;
-  const __nv_bfloat16* K = static_cast<const __nv_bfloat16*>(p.k) + kv_base;
-  const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(p.v) + kv_base;
-
-  // Carries of this thread's two rows: r_lo and r_lo + 8.
-  const int r_lo = m0 + warp * 16 + g;
-  const size_t row_base = static_cast<size_t>(bh) * p.sq;
-  float m_row[2], l_row[2];
-  float o[kND][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r_lo + 8 * i;
-    const bool ok = r < p.sq;
-    m_row[i] = ok ? p.m_in[row_base + r] : kNeg;
-    l_row[i] = ok ? p.l_in[row_base + r] : 0.f;
-#pragma unroll
-    for (int j = 0; j < kND; ++j) {
-      float2 a = make_float2(0.f, 0.f);
-      if (ok) {
-        a = *reinterpret_cast<const float2*>(
-            p.acc_in + (row_base + r) * D + 8 * j + 2 * t);
-      }
-      o[j][2 * i] = a.x;
-      o[j][2 * i + 1] = a.y;
-    }
-  }
-
   const int n_tiles = live_tiles(p, q_off, kv_off, m0, kBM, kBN);
-  if (n_tiles > 0) {
-    load_tile<D, kBM>(sQ, Q, m0, p.sq, tid);
-    load_tile<D, kBN>(sK, K, 0, p.sk, tid);
-    load_tile<D, kBN>(sV, V, 0, p.sk, tid);
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int i = 0; i < 2 * kStages; ++i) {
+      mbar_init(full_k + 8 * i, 1);
+      mbar_init(empty_k + 8 * i, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_commit();
+  __syncthreads();
 
-  unsigned qf[kKD][4];
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int st = jt & 1;
-    if (jt + 1 < n_tiles) {
-      load_tile<D, kBN>(sK + (st ^ 1) * kBN * kLd, K, (jt + 1) * kBN, p.sk,
-                        tid);
-      load_tile<D, kBN>(sV + (st ^ 1) * kBN * kLd, V, (jt + 1) * kBN, p.sk,
-                        tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // every group but the prefetch just issued
-    __syncthreads();
-
-    if (jt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kKD; ++kk) {
-        ldsm_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * kLd + kk * 16 +
-                            (lane >> 4) * 8);
+  if (wg == 0) {
+    // ---- producer: one thread keeps the TMA loads in flight.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 0 && n_tiles > 0) {
+      mbar_expect_tx(bar_q, S::kTileBytes);
+      for (int pn = 0; pn < kPanels; ++pn) {
+        tma_load_3d(sQ + pn * kPanelBytes, &tm_q, bar_q, pn * 64, m0, bh);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        // K_j, then V_j, each once its stage is released; rows past sk are
+        // zero-filled and still counted in the bytes.
+        for (int kv = 0; kv < 2; ++kv) {
+          const uint32_t off = 8 * (kv * kStages + st);
+          if (j >= kStages) mbar_wait(empty_k + off, (j / kStages - 1) & 1);
+          mbar_expect_tx(full_k + off, S::kTileBytes);
+          const uint32_t dst = (kv ? sV : sK) + st * S::kTileBytes;
+          for (int pn = 0; pn < kPanels; ++pn) {
+            tma_load_3d(dst + pn * kPanelBytes, kv ? &tm_v : &tm_k,
+                        full_k + off, pn * 64, j * kBN, kv_bh);
+          }
+        }
       }
     }
-
-    // s = q . k^T for this warp's 16 rows and the tile's 64 keys.
-    float s[kNN][4];
-#pragma unroll
-    for (int nb = 0; nb < kNN; ++nb) {
-      s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-    }
-    const __nv_bfloat16* sKs = sK + st * kBN * kLd;
-#pragma unroll
-    for (int kk = 0; kk < kKD; ++kk) {
-#pragma unroll
-      for (int nb = 0; nb < kNN; nb += 2) {
-        unsigned bfrag[4];
-        ldsm_x4(bfrag, sKs + (nb * 8 + (lane & 7) + ((lane >> 4) << 3)) * kLd +
-                           kk * 16 + ((lane >> 3) & 1) * 8);
-        mma16816(s[nb], qf[kk], bfrag[0], bfrag[1]);
-        mma16816(s[nb + 1], qf[kk], bfrag[2], bfrag[3]);
-      }
-    }
-
-    // Scale, mask, and the new running max.
-    const int k0 = jt * kBN;
-    unsigned mask = 0;  // bit nb*4+e: lane (nb, e) is legal
-    float mx[2] = {m_row[0], m_row[1]};
-#pragma unroll
-    for (int nb = 0; nb < kNN; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nb * 8 + 2 * t + (e & 1);
-        const int row = r_lo + (e >> 1) * 8;
-        const float x = s[nb][e] * p.scale;
-        const bool ok = legal(p, q_off, kv_off, row, col);
-        mask |= (ok ? 1u : 0u) << (nb * 4 + e);
-        s[nb][e] = ok ? x : kNeg;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
-      }
-    }
+  } else {
+    // ---- consumers: 64 q rows each.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_wg = m0 + (wg - 1) * 64;     // first row of this warpgroup
+    const int r_lo = r_wg + warp * 16 + g;   // this thread's rows: +0, +8
+    const size_t row_base = static_cast<size_t>(bh) * p.sq;
+    constexpr int kNO = D / 2;  // acc floats a thread (m64nD layout)
+    float m_row[2], l_row[2], o[kNO];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    }
-    float corr[2], rsum[2] = {0.f, 0.f};
+      const int r = r_lo + 8 * i;
+      const bool ok = r < p.sq;
+      m_row[i] = ok ? p.m_in[row_base + r] : kNeg;
+      l_row[i] = ok ? p.l_in[row_base + r] : 0.f;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) corr[i] = expf(m_row[i] - mx[i]);
-#pragma unroll
-    for (int nb = 0; nb < kNN; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pv = ((mask >> (nb * 4 + e)) & 1u)
-                             ? expf(s[nb][e] - mx[e >> 1])
-                             : 0.f;
-        s[nb][e] = pv;
-        rsum[e >> 1] += pv;
+      for (int nb = 0; nb < D / 8; ++nb) {
+        float2 a = make_float2(0.f, 0.f);
+        if (ok) {
+          a = *reinterpret_cast<const float2*>(
+              p.acc_in + (row_base + r) * D + 8 * nb + 2 * t);
+        }
+        o[4 * nb + 2 * i] = a.x;
+        o[4 * nb + 2 * i + 1] = a.y;
       }
     }
+
+    if (n_tiles > 0) {
+      const int mine = wg, other = 3 - wg;
+      const uint32_t q_addr = sQ + (wg - 1) * 64 * 128;
+      float s[64];
+      unsigned pf[32];  // bf16 p: the A operand of p.v, 4 per 16 keys
+      float corr[2];
+
+      auto issue_s = [&](int j) {  // s = q . k^T of tile j
+        const int st = j % kStages;
+        mbar_wait(full_k + 8 * st, (j / kStages) & 1);
+        wgmma_fence();
+        const uint32_t k_addr = sK + st * S::kTileBytes;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+          wgmma_ss_n128(s, desc_sw128(q_addr + off, 1, 64),
+                        desc_sw128(k_addr + off, 1, 64), kk > 0 ? 1 : 0);
+        }
+        wgmma_commit();
+      };
+      auto issue_pv = [&](int j) {  // acc += bf16(p) . v of tile j
+        const int st = j % kStages;
+        mbar_wait(full_v + 8 * st, (j / kStages) & 1);
+        const uint32_t v_addr = sV + st * S::kTileBytes;
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk) {
+          // 16 keys of 128 bytes a row, 8-key groups 1024 bytes apart;
+          // one 64-column panel is one swizzle atom wide.
+          const uint32_t at = v_addr + kk * 16 * 128;
+          wgmma_rs_n64<0>(o, pf + 4 * kk, desc_sw128(at, 64, 64));
+          if constexpr (kPanels == 2) {
+            wgmma_rs_n64<32>(
+                o, pf + 4 * kk, desc_sw128(at + kPanelBytes, 64, 64));
+          }
+        }
+        wgmma_commit();
+      };
+      auto softmax = [&](int j) {
+        const long long k0 = static_cast<long long>(j) * kBN;
+        const bool need = k0 + kBN > p.sk ||
+                          (p.causal && static_cast<long long>(q_off) + r_wg <
+                                           kv_off + k0 + kBN - 1);
+        if (need) {
+          online_softmax<true>(s, m_row, l_row, corr, p, q_off, kv_off, r_lo,
+                               static_cast<int>(k0), t);
+        } else {
+          online_softmax<false>(s, m_row, l_row, corr, p, q_off, kv_off,
+                                r_lo, static_cast<int>(k0), t);
+        }
+      };
+      auto rescale_and_pack = [&]() {
+#pragma unroll
+        for (int i = 0; i < kNO; ++i) o[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk) {
+          pf[4 * kk + 0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+          pf[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+          pf[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+          pf[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+      };
+      auto release = [&](uint32_t empty, int j) {  // tile j's stage
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * (j % kStages));
+      };
+
+      // Turns: warpgroup 1 issues first; each passes the turn on once its
+      // products are issued, then runs its softmax under the other's.
+      if (wg == 2) named_arrive(1);
+      mbar_wait(bar_q, 0);
+
+      named_sync(mine);
+      issue_s(0);
+      named_arrive(other);
+      wgmma_wait<0>();
+      fence_regs(s);
+      release(empty_k, 0);
+      softmax(0);
+      rescale_and_pack();
+
+      for (int j = 1; j < n_tiles; ++j) {
+        named_sync(mine);
+        issue_s(j);       // the next tile's scores ...
+        issue_pv(j - 1);  // ... and this tile's p.v behind them
+        named_arrive(other);
+        wgmma_wait<1>();  // the scores are in: K_j is free
+        fence_regs(s);
+        release(empty_k, j);
+        softmax(j);
+        wgmma_wait<0>();  // p.v is in: V_{j-1} and p are free
+        fence_regs(o);
+        fence_regs(pf);
+        release(empty_v, j - 1);
+        rescale_and_pack();
+      }
+
+      named_sync(mine);
+      wgmma_fence();
+      issue_pv(n_tiles - 1);
+      named_arrive(other);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pf);
+      release(empty_v, n_tiles - 1);
+      if (wg == 1) named_sync(1);  // takes warpgroup 2's last turn back
+    }
+
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 1);
-      rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 2);
-      l_row[i] = l_row[i] * corr[i] + rsum[i];
-      m_row[i] = mx[i];
-    }
-#pragma unroll
-    for (int j = 0; j < kND; ++j) {
-      o[j][0] *= corr[0];
-      o[j][1] *= corr[0];
-      o[j][2] *= corr[1];
-      o[j][3] *= corr[1];
-    }
-
-    // acc += bf16(p) . v
-    const __nv_bfloat16* sVs = sV + st * kBN * kLd;
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      unsigned a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int nd = 0; nd < kND; nd += 2) {
-        unsigned bfrag[4];
-        ldsm_x4_t(bfrag,
-                  sVs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
-                      nd * 8 + (lane >> 4) * 8);
-        mma16816(o[nd], a, bfrag[0], bfrag[1]);
-        mma16816(o[nd + 1], a, bfrag[2], bfrag[3]);
+      const int r = r_lo + 8 * i;
+      if (r >= p.sq) continue;
+      if (t == 0) {
+        p.m_out[row_base + r] = m_row[i];
+        p.l_out[row_base + r] = l_row[i];
       }
-    }
-    __syncthreads();  // this stage is refilled by the next prefetch
-  }
-  cp_async_wait<0>();
-
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r_lo + 8 * i;
-    if (r >= p.sq) continue;
-    if (t == 0) {
-      p.m_out[row_base + r] = m_row[i];
-      p.l_out[row_base + r] = l_row[i];
-    }
-#pragma unroll
-    for (int j = 0; j < kND; ++j) {
-      *reinterpret_cast<float2*>(p.acc_out + (row_base + r) * D + 8 * j +
-                                 2 * t) =
-          make_float2(o[j][2 * i], o[j][2 * i + 1]);
+      for (int nb = 0; nb < D / 8; ++nb) {
+        *reinterpret_cast<float2*>(p.acc_out + (row_base + r) * D + 8 * nb +
+                                   2 * t) =
+            make_float2(o[4 * nb + 2 * i], o[4 * nb + 2 * i + 1]);
+      }
     }
   }
 }
@@ -497,15 +679,68 @@ bool aligned(const void* ptr, uintptr_t n) {
   return (reinterpret_cast<uintptr_t>(ptr) & (n - 1)) == 0;
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry
+// point (no link against libcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      return nullptr;
+    }
+    return reinterpret_cast<EncodeTiledFn>(ptr);
+  }();
+  return fn;
+}
+
+// A bf16 [n_bh, rows, d] tensor as a 3-D map read in boxes of 64 columns
+// (128 bytes, one swizzle row) x 128 rows x 1 head, 128-byte swizzled.
+// Rows past `rows` read as zeros and never reach the next head.
+bool encode_map(CUtensorMap* map, const void* base, int d, int rows,
+                int n_bh) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(n_bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(rows) * d * 2};
+  const cuuint32_t box[3] = {64, 128, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A tensor map that cannot be encoded returns cudaErrorNotSupported.
 template <int D>
-cudaError_t launch_tc(const Params& p, int bh, cudaStream_t stream) {
-  using S = TcShape<D>;
+cudaError_t launch_ws(const Params& p, int b, cudaStream_t stream) {
+  using S = WsShape<D>;
+  CUtensorMap tq, tk, tv;
+  const int kv_rows = p.sk > 0 ? p.sk : 1;  // sk == 0: no tile is read
+  if (!encode_map(&tq, p.q, D, p.sq, b * p.h) ||
+      !encode_map(&tk, p.k, D, kv_rows, b * p.hkv) ||
+      !encode_map(&tv, p.v, D, kv_rows, b * p.hkv)) {
+    return cudaErrorNotSupported;
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_ws_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       S::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.sq + S::kBM - 1) / S::kBM, bh);
-  flash_tc_kernel<D><<<grid, S::kThreads, S::kSmem, stream>>>(p);
+  const int n_qt = (p.sq + S::kBM - 1) / S::kBM;
+  flash_ws_kernel<D><<<n_qt * b * p.h, S::kThreads, S::kSmem, stream>>>(
+      tq, tk, tv, p);
   return cudaGetLastError();
 }
 
@@ -521,7 +756,7 @@ cudaError_t launch_simt(const Params& p, int bh, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The tensor-core kernel takes bf16 at d 64 or 128 with 16-byte aligned
+// The warp-specialised kernel takes bf16 at d 64 or 128 with 16-byte aligned
 // q, k, v and 8-byte aligned accumulators; everything else goes to the
 // SIMT kernel. The one place that rule lives (brpc_flash_tile_k reads it).
 bool takes_tc(const void* q, const void* k, const void* v,
@@ -540,7 +775,13 @@ extern "C" int brpc_flash_tile_k(const void* q, const void* k, const void* v,
                                  const float* acc_in, const float* acc_out,
                                  int d, int is_bf16) {
   if (!takes_tc(q, k, v, acc_in, acc_out, d, is_bf16)) return kSimtBN;
-  return d == 128 ? TcShape<128>::kBN : TcShape<64>::kBN;
+  return d == 128 ? WsShape<128>::kBN : WsShape<64>::kBN;
+}
+
+// Dynamic shared memory a block of the warp-specialised kernel asks for at
+// width d (64 or 128; else 0).
+extern "C" int brpc_flash_ws_smem(int d) {
+  return d == 128 ? WsShape<128>::kSmem : d == 64 ? WsShape<64>::kSmem : 0;
 }
 
 // q [b,h,sq,d], k and v [b,hkv,sk,d] (bf16 when is_bf16, else fp32), the
@@ -563,8 +804,8 @@ extern "C" int brpc_flash_carry(const void* q, const void* k, const void* v,
            d,     causal, scale};
   cudaError_t err;
   if (takes_tc(q, k, v, acc_in, acc_out, d, is_bf16)) {
-    err = d == 128 ? launch_tc<128>(p, b * h, stream)
-                   : launch_tc<64>(p, b * h, stream);
+    err = d == 128 ? launch_ws<128>(p, b, stream)
+                   : launch_ws<64>(p, b, stream);
   } else if (is_bf16) {
     err = launch_simt<__nv_bfloat16>(p, b * h, stream);
   } else {

@@ -37,10 +37,11 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 def kernel_tile_k(q, k, v, acc) -> int:
     """Keys per tile that the CUDA kernel walks for these operands, as the
-    kernel's own dispatch (``brpc_flash_tile_k``) picks it: 64 on its
-    tensor-core path, 32 on its fp32 path. The plain version run with
-    ``block_k`` equal to it steps the running max and rounds p where the
-    kernel does. CUDA tensors only: CPU tensors have no kernel."""
+    kernel's own dispatch (``brpc_flash_tile_k``) picks it: 128 on its
+    warp-specialised tensor-core path, 32 on its fp32 path. The plain
+    version run with ``block_k`` equal to it and ``ragged_tail=True`` steps
+    the running max and rounds p where the kernel does. CUDA tensors only:
+    CPU tensors have no kernel."""
     if q.device.type != "cuda":
         raise ValueError(f"kernel_tile_k: q is on {q.device}; the kernel's "
                          "tile exists for CUDA tensors only")
@@ -98,19 +99,23 @@ def _check(q, k, v, m, l, acc, offsets) -> None:
 
 def flash_carry_reference(q, k, v, m, l, acc, offsets, *,
                           causal: bool = False, block_q: int = 1024,
-                          block_k: int = 1024):
+                          block_k: int = 1024, ragged_tail: bool = False):
     """Plain PyTorch: the k/v walk of the TPU kernel, block by block.
 
     ``block_k`` sets where p is rounded and the running max steps, as in
-    the TPU kernel; ``block_q`` changes no result (a skipped causal block
-    is a no-op on the carries) and is kept for the same signature. Blocks
-    wholly after the last query are skipped, as the kernels skip them.
+    the TPU kernel, which halves it until it divides sk. With
+    ``ragged_tail=True`` the walk takes ``block_k`` keys a block and a
+    shorter last one, as the CUDA kernels walk their tiles (for holding a
+    kernel against this version). ``block_q`` changes no result (a skipped
+    causal block is a no-op on the carries) and is kept for the same
+    signature. Blocks wholly after the last query are skipped, as the
+    kernels skip them.
     """
     del block_q
     b, h, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     group = h // hkv
-    bk = _pick_block(sk, block_k)
+    bk = max(block_k, 1) if ragged_tail else _pick_block(sk, block_k)
     scale = 1.0 / (d ** 0.5)
     q_off, kv_off = _offset_ints(offsets)
     qf = q.float()
@@ -123,9 +128,10 @@ def flash_carry_reference(q, k, v, m, l, acc, offsets, *,
     for j0 in range(0, sk, bk):
         if causal and kv_off + j0 > q_off + sq - 1:
             break
-        s = torch.matmul(qf, kf[:, :, j0:j0 + bk].transpose(-1, -2)) * scale
+        kb = kf[:, :, j0:j0 + bk]
+        s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
         if causal:
-            k_pos = kv_off + j0 + torch.arange(bk, device=q.device)
+            k_pos = kv_off + j0 + torch.arange(kb.shape[2], device=q.device)
             mask = q_pos[:, None] >= k_pos[None, :]
             s = torch.where(mask, s, _NEG)
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -153,7 +159,7 @@ def flash_attention_carry(q, k, v, m, l, acc, offsets, *,
     (m, l, acc); finalize with ``flash_finalize``.
 
     CPU tensors take ``flash_carry_reference`` with ``block_q``/``block_k``
-    as in the JAX package. On CUDA the kernel picks its own tiles (64 keys
+    as in the JAX package. On CUDA the kernel picks its own tiles (128 keys
     on the tensor-core path; 32 on the fp32 path, which also takes any
     d <= 256 and bf16 at other widths) and takes bf16 or fp32, contiguous,
     d <= 256; it raises TypeError or ValueError on anything else.

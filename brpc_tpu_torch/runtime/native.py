@@ -204,15 +204,25 @@ def _have_cmake() -> bool:
     return bool(shutil.which("cmake") and shutil.which("ninja"))
 
 
+def build_cmake_library() -> None:
+    """Where ``native/build/libbrpc_tpu.so`` is missing and cmake+ninja
+    are present, configure ``native/build/`` with the JAX package's
+    arguments and build its ``brpc_tpu`` target. Call under the build lock
+    (``native/build.lock``); raises ``subprocess.CalledProcessError``, with
+    the build's output, when a step fails."""
+    if os.path.exists(_LIB_PATH) or not _have_cmake():
+        return
+    subprocess.run(configure_command(_BUILD_DIR), cwd=_REPO,  # tpulint: allow(py-blocking)
+                   check=True, capture_output=True)
+    subprocess.run(  # tpulint: allow(py-blocking)
+        ["cmake", "--build", _BUILD_DIR, "--target", "brpc_tpu"],
+        cwd=_REPO, check=True, capture_output=True)
+
+
 def _resolve_library() -> str:
     """The library to load (see the module docstring), building what is
     missing. Call under the build lock."""
-    if not os.path.exists(_LIB_PATH) and _have_cmake():
-        subprocess.run(configure_command(_BUILD_DIR), cwd=_REPO,  # tpulint: allow(py-blocking)
-                       check=True, capture_output=True)
-        subprocess.run(  # tpulint: allow(py-blocking)
-            ["cmake", "--build", _BUILD_DIR, "--target", "brpc_tpu"],
-            cwd=_REPO, check=True, capture_output=True)
+    build_cmake_library()
     if os.path.exists(_LIB_PATH) and links_shared_libstdcxx(_LIB_PATH):
         return _LIB_PATH
     return _gxx_copy()

@@ -307,8 +307,8 @@ def _time_dequant(q, s, block, n, shape, rate) -> dict:
 # ---------------------------------------------------------------- phase 2, K3
 
 # K3 against its plain version run with the kernel's own k tile
-# (flash_attention.kernel_tile_k), so both step the running max and round
-# p at the same places. Tolerances: m to 1e-4 (the same fp32 dot products
+# (flash_attention.kernel_tile_k) and the kernel's ragged last tile, so both
+# step the running max and round p at the same places. Tolerances: m to 1e-4 (the same fp32 dot products
 # summed in another order); l to 1e-4 relative; acc/l to 4e-3 for bf16
 # inputs (a p whose bf16 rounding flips with that order moves one key's
 # weight by one bf16 step, 2^-8) and 1e-4 for fp32; the finalized output in
@@ -337,7 +337,7 @@ def _flash_case(label, q, k, v, carry, offsets, causal) -> float:
                                           causal=causal)
     rm, rl, ra = fa.flash_carry_reference(
         q, k, v, m, l, acc, offsets, causal=causal,
-        block_k=fa.kernel_tile_k(q, k, v, acc))
+        block_k=fa.kernel_tile_k(q, k, v, acc), ragged_tail=True)
     torch.cuda.synchronize()
     for t in (km, kl, ka):
         if not bool(torch.isfinite(t).all()):
@@ -378,7 +378,8 @@ def _flash_timing(q, k, v, causal, rate, flops_rate) -> dict:
                  reps=10, inner=3)
     tile = fa.kernel_tile_k(q, k, v, acc)
     plain = cuda_ms(lambda: fa.flash_carry_reference(
-        q, k, v, m, l, acc, (0, 0), causal=causal, block_k=tile),
+        q, k, v, m, l, acc, (0, 0), causal=causal, block_k=tile,
+        ragged_tail=True),
         reps=3, inner=1, warm=1)
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal, enable_gqa=k.shape[1] != h),
@@ -444,7 +445,7 @@ def flash_vs_plain(seed: int, rate: float, flops_rate: float) -> dict:
         fail("K3: a fully masked hop changed the carry")
     log("K3 fully masked hop: carry unchanged (bit for bit)")
     del q, k, v, k0, v0, carry, got
-    # Ragged q rows (not a multiple of the 64-row tile), both paths.
+    # Ragged q rows (not a multiple of the 128-row tile), both paths.
     for label, shape, dtype in (("ragged bf16", (1, 8, 2, 1000, 128), bf16),
                                 ("ragged f32 d=40", (1, 4, 2, 1000, 40),
                                  f32)):
@@ -459,6 +460,7 @@ def flash_vs_plain(seed: int, rate: float, flops_rate: float) -> dict:
             f"{t['plain_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
             f"({t['bound_by']}) library_ms(SDPA)={t['library_ms']:.4f}; "
             f"{t['tflops']:.1f} TFLOP/s")
+    log("K3 build: " + _flash_build_report())
     return {"name": "brpc_flash_carry", "ported": True, "route": "cuda",
             "source": "brpc_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": "brpc_tpu/ops/flash_attention.py:47",
@@ -472,6 +474,37 @@ def flash_vs_plain(seed: int, rate: float, flops_rate: float) -> dict:
                              **{key: second[key] for key in (
                                  "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}}}
+
+
+def _flash_build_report() -> str:
+    """Registers and spills ptxas reported for each K3 kernel, and the
+    dynamic shared memory a launch of the tensor-core kernel asks for."""
+    import ctypes
+    import re
+
+    from brpc_tpu_torch.ops import _build
+
+    log_text = str(_build.last_build.get("log", ""))
+    found, kernel = [], None
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S*flash_(ws|simt)_kernel"
+                      r"I(Li(\d+)E|f|13__nv_bfloat16)\S*)'", ln)
+        if m:
+            kernel = (f"flash_ws_kernel<{m.group(4)}>" if m.group(2) == "ws"
+                      else "flash_simt_kernel<"
+                      + ("float" if m.group(3) == "f" else "bf16") + ">")
+        elif kernel and "spill" in ln:
+            found.append(f"{kernel}: {ln.strip()}")
+        elif kernel and "registers" in ln:
+            found[-1] += "; " + ln.strip().replace("ptxas info    : ", "")
+            kernel = None
+    fn = _build.kernel("brpc_flash_ws_smem", [ctypes.c_int])
+    smem = {d: int(fn(d)) for d in (64, 128)}
+    if not found:  # a cached library: this process did not build it
+        found = ["ptxas report: not in this process (library cached)"]
+    return ("; ".join(found) + f"; dynamic shared memory a block: d=64 "
+            f"{smem[64]} B, d=128 {smem[128]} B (setmaxnreg: producer 24, "
+            "consumers 240 registers)")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -778,7 +811,10 @@ def tensor_service_paths(seed: int) -> dict:
     n, sq = RING_SHARDS, c["s"] // RING_SHARDS
     outs = []
 
+    folds = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
     def ring():
+        folds[0].record()
         for rank in range(n):
             qr = q[:, :, rank * sq:(rank + 1) * sq].contiguous()
             m, l, acc = fa.flash_init(c["b"], c["h"], sq, c["d"],
@@ -790,10 +826,14 @@ def tensor_service_paths(seed: int) -> dict:
                 m, l, acc = fa.flash_attention_carry(
                     qr, kb, vb, m, l, acc, (q_off, kv_off), causal=True)
             outs.append(fa.flash_finalize(l, acc, torch.float32))
+        folds[1].record()
 
     launches["ring_replay"] = _drive(
         f"ring replay, {n} shards x {n} hops", ring,
         {"brpc_flash_carry": n * n})
+    log(f"  ring replay device time (CUDA events, {n * n} K3 folds with "
+        f"their slicing and finalize): {folds[0].elapsed_time(folds[1]):.4f}"
+        " ms")
     ring_out = torch.cat(outs, dim=2)
     m, l, acc = fa.flash_attention_carry(
         q, k, v, *fa.flash_init(c["b"], c["h"], c["s"], c["d"],

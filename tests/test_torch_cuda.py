@@ -140,17 +140,67 @@ def test_flash_carry_kernel_matches_plain(cuda, dtype, b, h, hkv, sq, sk, d,
                                             causal=causal)
     torch.cuda.synchronize()
     assert torch.equal(km, im) and torch.equal(kacc, iacc)
+    _assert_matches_plain(q, k, v, (m, l, acc), offsets, causal,
+                          (km, kl, kacc))
+
+
+def _assert_matches_plain(q, k, v, carry, offsets, causal, got):
     rm, rl, racc = fa.flash_carry_reference(
-        q, k, v, m, l, acc, offsets, causal=causal,
-        block_k=fa.kernel_tile_k(q, k, v, acc))
+        q, k, v, *carry, offsets, causal=causal,
+        block_k=fa.kernel_tile_k(q, k, v, carry[2]), ragged_tail=True)
+    km, kl, kacc = got
     torch.testing.assert_close(km, rm, atol=1e-4, rtol=0)
     torch.testing.assert_close(kl, rl, atol=1e-4, rtol=1e-4)
-    tol = 4e-3 if dtype == torch.bfloat16 else 1e-4
+    tol = 4e-3 if q.dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(kacc / kl, racc / rl, atol=tol, rtol=tol)
 
 
+# The warp-specialised bf16 kernel (128-row q tiles, 128-key tiles): a
+# ragged last k tile (sk 1000), ragged q rows, and device offsets at a ring
+# hop whose causal diagonal crosses tiles mid-way, at both of its widths.
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,offsets", [
+    (1000, 1000, (24, 0)),      # ragged sk and sq, diagonal mid-tile
+    (333, 1000, (700, 0)),      # ragged sq after most keys
+    (512, 512, (512, 512)),     # a ring hop on the diagonal
+    (512, 512, (1024, 512)),    # a ring hop wholly visible
+])
+def test_ws_kernel_matches_plain_at_ragged_edges(cuda, d, sq, sk, offsets):
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + d)
+    q = torch.randn(1, 8, sq, d, generator=gen, device=cuda).bfloat16()
+    k = torch.randn(1, 2, sk, d, generator=gen, device=cuda).bfloat16()
+    v = torch.randn(1, 2, sk, d, generator=gen, device=cuda).bfloat16()
+    assert fa.kernel_tile_k(q, k, v, q.float()) == 128
+    m, l, acc = fa.flash_carry_reference(  # a carry that is not fresh
+        q, k, v, *fa.flash_init(1, 8, sq, d, device=cuda), (sk, 0),
+        causal=True, block_k=128, ragged_tail=True)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    got = fa.flash_attention_carry(q, k, v, m, l, acc, off, causal=True)
+    torch.cuda.synchronize()
+    _assert_matches_plain(q, k, v, (m, l, acc), offsets, True, got)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_ws_block_with_no_live_tile_returns_the_carry(cuda, d):
+    # q rows 0..127 end before the first key (kv_off 128): their block has
+    # exactly 0 live tiles and hands its carries back bit for bit; rows
+    # 128..255 fold keys.
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn(1, 4, 256, d, generator=gen, device=cuda)
+               .bfloat16() for _ in range(3))
+    m, l, acc = fa.flash_carry_reference(
+        q, k, v, *fa.flash_init(1, 4, 256, d, device=cuda), (512, 0),
+        causal=True, block_k=128, ragged_tail=True)
+    got = fa.flash_attention_carry(q, k, v, m, l, acc, (0, 128), causal=True)
+    torch.cuda.synchronize()
+    for g, before in zip(got, (m, l, acc)):
+        assert torch.equal(g[:, :, :128], before[:, :, :128])
+    assert not torch.equal(got[2][:, :, 128:], acc[:, :, 128:])
+    _assert_matches_plain(q, k, v, (m, l, acc), (0, 128), True, got)
+
+
 @pytest.mark.parametrize("dtype,d,misalign,want", [
-    (torch.bfloat16, 128, False, 64), (torch.bfloat16, 64, False, 64),
+    (torch.bfloat16, 128, False, 128), (torch.bfloat16, 64, False, 128),
     (torch.bfloat16, 32, False, 32), (torch.float32, 128, False, 32),
     (torch.bfloat16, 128, True, 32)])
 def test_kernel_tile_k_follows_the_kernels_dispatch(cuda, dtype, d, misalign,

@@ -2,7 +2,9 @@
 
 Every case of tests/test_flash_attention.py (causal and not, GQA 8/2, the
 score-jump rescale), plus carries at non-zero offsets (a fully masked one
-included), a chain of carries against one pass, and bf16 inputs. The same
+included), a chain of carries against one pass, bf16 inputs, the CUDA
+kernel's 128-key tile at d 64 and 128, and the plain version's
+ragged-tail walk against the dense oracle. The same
 numpy inputs go through ``brpc_tpu.ops.flash_attention`` — its Pallas
 kernel in interpret mode — and through ``brpc_tpu_torch.ops.
 flash_attention`` on CPU tensors (its plain version, ``flash_carry_
@@ -252,3 +254,45 @@ def test_kernel_tile_k():
     acc = tfa.flash_init(1, 4, 8, 4, device="cpu")[2]
     with pytest.raises(ValueError, match="CUDA tensors only"):
         tfa.kernel_tile_k(q, k, v, acc)
+
+
+# The CUDA kernel's tile (kernel_tile_k: 128 keys on its bf16 tensor-core
+# path) at its two widths, against the JAX package: a causal GQA carry whose
+# diagonal crosses a 128-row tile mid-way (q_off 24), and a ring hop's
+# offset pair (each rank's own diagonal block at sq = 256).
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("q_off,kv_off", [(24, 0), (256, 256)])
+def test_tile_128_carry_matches_jax(d, q_off, kv_off):
+    b, h, hkv, s = 1, 4, 2, 256
+    q, k, v = _qkv(b, h, hkv, s, d, seed=d + q_off)
+    m, l, acc = _carries(b, h, s, d, seed=d)
+    off = np.array([q_off, kv_off], np.int32)
+    got = tfa.flash_attention_carry(*_torch(q, k, v, m, l, acc),
+                                    torch.from_numpy(off), causal=True,
+                                    block_q=128, block_k=128)
+    want = jfa.flash_attention_carry(*_jax(q, k, v, m, l, acc),
+                                     jnp.asarray(off), causal=True,
+                                     block_q=128, block_k=128,
+                                     interpret=True)
+    for g, w in zip(got, want):
+        _close(g, w, F32_TOL)
+
+
+# The plain version's ragged-tail walk (128-key blocks and a 104-key last
+# one at sk = 1000, as the CUDA kernel walks them), from a fresh carry,
+# against the dense oracle.
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_ragged_tail_walk_matches_dense(d, causal):
+    b, h, hkv, s = 1, 4, 2, 1000
+    tq, tk, tv = _torch(*_qkv(b, h, hkv, s, d, seed=d))
+    m, l, acc = tfa.flash_carry_reference(
+        tq, tk, tv, *tfa.flash_init(b, h, s, d, device="cpu"), (0, 0),
+        causal=causal, block_k=128, ragged_tail=True)
+    out = tfa.flash_finalize(l, acc, torch.float32)
+    _close(out, tfa.dense_attention_mh(tq, tk, tv, causal=causal), F32_TOL)
+    # The JAX package's walk (_pick_block: 1000 -> 8-key blocks) agrees.
+    _, l8, acc8 = tfa.flash_carry_reference(
+        tq, tk, tv, *tfa.flash_init(b, h, s, d, device="cpu"), (0, 0),
+        causal=causal, block_k=128)
+    _close(out, tfa.flash_finalize(l8, acc8, torch.float32), F32_TOL)
