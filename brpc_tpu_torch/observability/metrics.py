@@ -110,14 +110,44 @@ def gauge(name: str, fn: Callable[[], int]) -> PassiveGauge:
                           lambda: PassiveGauge(name, fn))
 
 
-def dump_vars(prefix: str = "") -> str:
-    """Every exposed variable as "name : value" lines (/vars parity)."""
-    L = native.lib()
-    need = L.tbrpc_vars_dump(prefix.encode(), None, 0)
+# Roles that restart within one process (fleet clients, migrators, a
+# re-created named server) cannot re-register a gauge: registrations are
+# immortal and keep their first callback. These read through a table
+# instead, where the newest repointable_gauge(name, ...) wins.
+_repoint_mu = threading.Lock()
+_repoint_holders: Dict[str, Callable[[], int]] = {}
+
+
+def repointable_gauge(name: str, fn: Callable[[], int]) -> None:
+    """(Re)point gauge ``name`` at ``fn``; the native registration happens
+    on the first call for the name and reads the current holder at scrape
+    time."""
+    with _repoint_mu:
+        first = name not in _repoint_holders
+        _repoint_holders[name] = fn
+    if first:
+        def _read(name=name) -> int:
+            with _repoint_mu:
+                f = _repoint_holders.get(name)
+            return int(f()) if f is not None else 0
+
+        gauge(name, _read)
+
+
+def _snapshot_buf(call, *args) -> bytes:
+    """The capi dumps' two-call copy-out: size, then fetch (again if the
+    snapshot grew between the calls)."""
+    need = call(*args, None, 0)
     while need > 0:
         buf = ctypes.create_string_buffer(need + 1)
-        got = L.tbrpc_vars_dump(prefix.encode(), buf, need + 1)
+        got = call(*args, buf, need + 1)
         if got <= need:
-            return buf.value.decode(errors="replace")
+            return buf.value
         need = got
-    return ""
+    return b""
+
+
+def dump_vars(prefix: str = "") -> str:
+    """Every exposed variable as "name : value" lines (/vars parity)."""
+    return _snapshot_buf(native.lib().tbrpc_vars_dump,
+                         prefix.encode()).decode(errors="replace")

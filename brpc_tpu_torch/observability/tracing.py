@@ -34,6 +34,20 @@ def current_trace() -> Tuple[int, int]:
     return t.value, s.value
 
 
+def set_trace(trace_id: int, span_id: int) -> None:
+    """Make (trace_id, span_id) the active context of this thread — how a
+    pooled worker thread carries its caller's trace."""
+    native.lib().tbrpc_trace_set(trace_id, span_id)
+
+
+def clear_trace() -> None:
+    native.lib().tbrpc_trace_clear()
+
+
+def new_id() -> int:
+    return native.lib().tbrpc_trace_new_id()
+
+
 def annotate(text: str) -> None:
     """Attach free-form text to the active span (no-op without one)."""
     native.lib().tbrpc_span_annotate(text.encode("utf-8", errors="replace"))
@@ -57,6 +71,9 @@ class SpanHandle:
         self.span_id = span_id
         self.error_code = 0
 
+    def set_error(self, code: int) -> None:
+        self.error_code = code
+
 
 @contextlib.contextmanager
 def trace_span(name: str, *, server_side: bool = False
@@ -72,10 +89,10 @@ def trace_span(name: str, *, server_side: bool = False
     if parent_trace == 0 and not L.tbrpc_rpcz_sample_root():
         yield SpanHandle(0, 0)
         return
-    trace_id = parent_trace if parent_trace != 0 else L.tbrpc_trace_new_id()
-    span_id = L.tbrpc_trace_new_id()
+    trace_id = parent_trace if parent_trace != 0 else new_id()
+    span_id = new_id()
     handle = SpanHandle(trace_id, span_id)
-    L.tbrpc_trace_set(trace_id, span_id)
+    set_trace(trace_id, span_id)
     start_us = L.tbrpc_now_us()
     try:
         yield handle
@@ -85,9 +102,9 @@ def trace_span(name: str, *, server_side: bool = False
     finally:
         end_us = L.tbrpc_now_us()
         if parent_trace != 0 or parent_span != 0:
-            L.tbrpc_trace_set(parent_trace, parent_span)
+            set_trace(parent_trace, parent_span)
         else:
-            L.tbrpc_trace_clear()
+            clear_trace()
         L.tbrpc_span_emit(trace_id, span_id, parent_span,
                           1 if server_side else 0, start_us, end_us,
                           handle.error_code, name.encode())

@@ -271,6 +271,16 @@ class ErrorFeedback:
     def residual(self, name: str) -> Optional[np.ndarray]:
         return self._residual.get(name)
 
+    def prune(self, keep) -> int:
+        """Drop every residual whose name fails ``keep(name)``; returns
+        the count dropped (a fleet client's reshard hook: a name routed to
+        another shard is never pushed through this accumulator again)."""
+        dead = [n for n in list(self._residual) if not keep(n)]
+        for n in dead:
+            # pop: a concurrent clear() may have dropped it already.
+            self._residual.pop(n, None)
+        return len(dead)
+
 
 def note(tensor: str, codec: str, logical_bytes: int, wire_bytes: int
          ) -> None:

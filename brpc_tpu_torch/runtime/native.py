@@ -255,8 +255,29 @@ def links_shared_libstdcxx(path: str) -> bool:
     return "[libstdc++.so.6]" in r.stdout
 
 
+def refuse_second_copy(path: str, maps: str = "/proc/self/maps") -> None:
+    """Raise if another file's ``libbrpc_tpu.so`` is already mapped into
+    this process. Two copies of the runtime name their shared-memory
+    segments alike (the pid and a counter of their own), so a tensor one
+    copy sends by reference can be read from the other copy's segment."""
+    mine = os.path.realpath(path)
+    try:
+        with open(maps) as f:
+            mapped = {line.split()[-1] for line in f
+                      if line.rstrip().endswith("/libbrpc_tpu.so")}
+    except OSError:
+        return  # no /proc: nothing to compare against
+    others = sorted(p for p in mapped if os.path.realpath(p) != mine)
+    if others:
+        raise RuntimeError(
+            f"{others[0]} is already loaded in this process; a second copy "
+            f"({path}) would reuse its shared-memory segment names. Load "
+            "the port in a process of its own.")
+
+
 def _load() -> ctypes.CDLL:
     path = library_path()
+    refuse_second_copy(path)
     L = ctypes.CDLL(path)
     if not hasattr(L, "tbrpc_registry_install"):
         raise RuntimeError(
@@ -310,6 +331,29 @@ def _load() -> ctypes.CDLL:
         ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_char_p]
     L.tbrpc_now_us.restype = ctypes.c_int64
+    # Flight recorder + stall watchdog: callable from any plain thread
+    # while every fiber worker is parked (observability/health.py).
+    L.tbrpc_flight_snapshot.restype = ctypes.c_int64
+    L.tbrpc_flight_snapshot.argtypes = [
+        ctypes.c_int64, ctypes.c_char_p, ctypes.c_size_t]
+    L.tbrpc_flight_total_events.restype = ctypes.c_int64
+    L.tbrpc_watchdog_start.restype = ctypes.c_int
+    L.tbrpc_watchdog_start.argtypes = [ctypes.c_char_p]
+    L.tbrpc_watchdog_stop.restype = ctypes.c_int
+    L.tbrpc_health_state.restype = ctypes.c_int
+    L.tbrpc_health_dump_json.restype = ctypes.c_int64
+    L.tbrpc_health_dump_json.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
+    L.tbrpc_health_last_dump_path.restype = ctypes.c_int64
+    L.tbrpc_health_last_dump_path.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t]
+    L.tbrpc_flag_set.restype = ctypes.c_int
+    L.tbrpc_flag_set.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    # The process-global service registry the fleet rides over HTTP
+    # (fleet/registry.py); clear is test isolation.
+    L.tbrpc_registry_install.restype = ctypes.c_int
+    L.tbrpc_registry_install.argtypes = []
+    L.tbrpc_registry_clear.restype = ctypes.c_int
+    L.tbrpc_registry_clear.argtypes = []
     L.tbrpc_tensor_codec_note.argtypes = [
         ctypes.c_char_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_uint64]
     L.tbrpc_tensor_codec_note.restype = None

@@ -11,9 +11,20 @@ by-reference TensorArena attachment (brpc_tpu_torch/runtime/tensor.py):
          them) and applies the fused momentum-update kernel OUT OF PLACE,
          then bumps the version.
 
-Methods served: Meta, Epoch, Pull, PullQ, Push, PushQ — the JAX package's
-wire, byte for byte, so either package's client talks to either server.
-Other methods (the fleet handshake, one-sided reads) answer E_NO_SUCH.
+Methods served: Meta, Epoch, Pull, PullQ, Push, PushQ, the one-sided
+mapping handshake (Oneside) and the live-resharding handshake a fleet
+Migrator drives (Handoff, Install, Retire, Commit) — the JAX package's
+wire, byte for byte, so either package's client, fleet client or
+migrator talks to either server.
+
+Per-name migration states (absent = serving):
+
+  frozen   Handoff exported it: pulls still served, pushes refused with
+           E_MOVED so no update lands that the export missed
+  pending  Installed here, not committed: pulls served at the version the
+           old owner still serves, pushes refused with E_MIGRATING
+  retired  gone from this server: pulls and pushes answer E_MOVED
+           "moved:<dest>" so a client on a stale shard map re-routes
 """
 
 from __future__ import annotations
@@ -21,6 +32,8 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
+import struct
 import threading
 import time
 import weakref
@@ -34,24 +47,40 @@ from brpc_tpu_torch.ops.fused_update import fused_momentum_update
 from brpc_tpu_torch.runtime import codec as codec_mod
 from brpc_tpu_torch.runtime import groupwire, native
 from brpc_tpu_torch.runtime.state import PSState, state_from_numpy
-from brpc_tpu_torch.runtime.tensor import (E_UNDECODABLE, PipelineWindow,
+from brpc_tpu_torch.runtime.tensor import (E_UNDECODABLE, OnesideGone,
+                                           OnesideMiss, OnesideReader,
+                                           OnesideWindow, PipelineWindow,
                                            TensorArena, TensorChannel,
                                            WireTensor, _as_host_array,
                                            _dequant_widen,
                                            _detach_device_put_batch,
                                            _device_put_from_view, _metrics,
                                            _stage, add_tensor_service,
-                                           consume_pull_reply, np_dtype)
+                                           consume_oneside_payload,
+                                           consume_pull_reply, np_dtype,
+                                           pad_header64)
 from brpc_tpu_torch.utils.device import resolve_device
 
 # App-level error codes, disjoint from trpc/errno.h (E_UNDECODABLE = 2044
-# lives in tensor.py).
+# lives in tensor.py). E_MOVED's text carries the forwarding address as
+# "moved:<host:port>"; E_MIGRATING means installed but not committed yet.
 E_NO_SUCH = 2040
 E_MOVED = 2041
 E_MIGRATING = 2042
-E_EXISTS = 2043
+E_EXISTS = 2043  # install over a serving parameter
 
-_METHODS = ("Meta", "Epoch", "Pull", "PullQ", "Push", "PushQ")
+_METHODS = ("Meta", "Epoch", "Pull", "PullQ", "Push", "PushQ", "Oneside",
+            "Handoff", "Install", "Retire", "Commit")
+
+_MOVED_RE = re.compile(r"moved:(\S+)")
+
+
+def moved_dest(err: "native.RpcError") -> Optional[str]:
+    """The forwarding address an E_MOVED redirect carries, or None."""
+    if err.code != E_MOVED:
+        return None
+    m = _MOVED_RE.search(err.text or "")
+    return m.group(1) if m else None
 
 
 class OverloadPacer:
@@ -152,6 +181,20 @@ def _server_metrics():
         return _metrics_cache
 
 
+def _per_server_lag_gauge(name: str, srv: "ParameterServer") -> None:
+    """This server's version spread as its own gauge,
+    ``torch_param_server_version_lag_<name>`` (a fleet names it per
+    shard). Re-pointable (the newest server claiming the name wins) and
+    weakly bound, so a re-created server neither collides nor leaks."""
+    from brpc_tpu_torch.observability import metrics as obs
+
+    safe = re.sub(r"[^a-zA-Z0-9_]", "_", name)
+    ref = weakref.ref(srv)
+    obs.repointable_gauge(
+        f"torch_param_server_version_lag_{safe}",  # tpulint: allow(metric-name)
+        lambda: getattr(ref(), "_version_spread", 0))
+
+
 class ParameterServer:
     """Serves named tensors over RPC; Push applies momentum SGD.
 
@@ -159,10 +202,18 @@ class ParameterServer:
     ``device`` (default CUDA; raises when CUDA is absent) with zero
     momenta — or a :class:`PSState` from :func:`state_from_numpy`, used as
     it is (its tensors' device).
+
+    ``name`` adds a per-server version-lag gauge. ``oneside=True``
+    publishes every committed version into a seqlock-stamped window of
+    the service arena, so a same-host client reads it without an RPC;
+    ``oneside_codec`` (a codec this server serves) publishes eligible
+    tensors in that wire form instead of raw.
     """
 
     def __init__(self, params, lr: float = 0.01, momentum: float = 0.9,
-                 arena: Optional[TensorArena] = None, device=None):
+                 arena: Optional[TensorArena] = None, device=None,
+                 name: Optional[str] = None, oneside: bool = False,
+                 oneside_codec: Optional[str] = None):
         if isinstance(params, PSState):
             state = params
             devices = {t.device for t in state.params.values()}
@@ -189,20 +240,34 @@ class ParameterServer:
         self._mu = threading.Lock()  # handlers run on callback-pool threads
         self._version_spread = 0  # lock-free mirror for the lag gauge
         self._recompute_spread_locked()
-        # Schema epoch: bumps when the parameter SET changes — never, in
-        # this server, which serves a fixed set.
+        # Schema epoch: bumps when the parameter SET changes (Install,
+        # Retire), never on a plain update — the client Meta cache key.
         self._schema_epoch = 1
+        self._state: Dict[str, str] = {}         # absent == "serving"
+        self._handoff_dest: Dict[str, str] = {}  # frozen name -> dest addr
+        self._moved: Dict[str, str] = {}         # retired name -> dest addr
         # Codecs this server encodes pulls with / decodes pushes from,
         # advertised in Meta.
         self._codecs = tuple(codec_mod.supported_codecs())
         # Quantize once, serve many: name -> {codec: (version, meta,
         # wire uint8, logical bytes)}, replaced when the version moves.
         self._enc_cache: Dict[str, Dict[str, tuple]] = {}
+        self.name = name
+        if name is not None:
+            _per_server_lag_gauge(name, self)
         _SERVERS.add(self)
         self._m = _server_metrics()
         self.server = native.Server()
         self.arena = add_tensor_service(self.server, "ParamService",
                                         self._handle, arena)
+        self._oneside_window: Optional[OnesideWindow] = None
+        self._oneside_codec = (oneside_codec
+                               if oneside_codec in self._codecs else None)
+        if oneside:
+            self._oneside_window = OnesideWindow(self.arena)
+            for k in list(self._params):
+                with self._update_locks[k]:
+                    self._publish_oneside(k)
         self.port: Optional[int] = None
 
     def start(self, addr: str = "127.0.0.1:0") -> int:
@@ -219,22 +284,38 @@ class ParameterServer:
             return PSState(dict(self._params), dict(self._momenta),
                            dict(self._version))
 
+    def _missing_locked(self, name: str) -> "native.RpcError":
+        """The answer for a name this server does not hold: E_MOVED with
+        the forwarding address once it was retired here, else E_NO_SUCH.
+        Call under _mu."""
+        dest = self._moved.get(name)
+        if dest is not None:
+            return native.RpcError(E_MOVED, f"parameter {name} moved:{dest}")
+        return native.RpcError(E_NO_SUCH, f"no such parameter: {name}")
+
     # ---- handler (runs on a callback-pool thread) ----
     def _handle(self, method: str, request: bytes, att):
         if method not in _METHODS:
             raise native.RpcError(E_NO_SUCH, f"no such method: {method}")
         if method == "Meta":
             with self._mu:
-                meta = {k: {"shape": list(v.shape),
-                            "dtype": np_dtype(v.dtype).name,
-                            "version": self._version[k]}
-                        for k, v in self._params.items()}
+                meta = {}
+                for k, v in self._params.items():
+                    entry = {"shape": list(v.shape),
+                             "dtype": np_dtype(v.dtype).name,
+                             "version": self._version[k]}
+                    state = self._state.get(k)
+                    if state is not None:  # frozen/pending: the
+                        entry["state"] = state  # migrator's repair pass
+                    meta[k] = entry
                 epoch = self._schema_epoch
-            # "qos"/"codecs"/"pushq" are the negotiation advertisements:
-            # clients stamp QoS fields, quantize, or group pushes only
-            # after seeing them.
+            # "qos"/"codecs"/"pushq"/"oneside" are the negotiation
+            # advertisements: clients stamp QoS fields, quantize, group
+            # pushes or ask for the window only after seeing them.
             doc = {"epoch": epoch, "params": meta, "qos": 1,
                    "codecs": list(self._codecs), "pushq": 1}
+            if self._oneside_window is not None:
+                doc["oneside"] = 1
             return json.dumps(doc).encode(), None
         if method == "Epoch":
             with self._mu:
@@ -244,6 +325,24 @@ class ParameterServer:
             return self._handle_pull_group(request)
         if method == "PushQ":
             return self._handle_push_group(request, att)
+        if method == "Oneside":
+            # The mapping handshake: one RPC hands out the descriptor;
+            # every read after it is a memory read.
+            if self._oneside_window is None:
+                raise native.RpcError(E_NO_SUCH, "one-sided reads disabled")
+            desc = self._oneside_window.describe()
+            # A decimal string on the wire: a double-typed JSON parser
+            # would round a u64 token above 2^53.
+            desc["token"] = str(desc["token"])
+            return json.dumps(desc).encode(), None
+        if method == "Handoff":
+            return self._handle_handoff(request)
+        if method == "Install":
+            return self._handle_install(request, att)
+        if method == "Retire":
+            return self._handle_retire(request)
+        if method == "Commit":
+            return self._handle_commit(request)
         # Per-call codec marker: "<name>\x00<codec>" (only from clients
         # that saw the codec advertised), else the bare name.
         name_b, _, want_b = request.partition(b"\x00")
@@ -254,8 +353,8 @@ class ParameterServer:
             with self._mu:
                 p = self._params.get(name)
                 version = self._version.get(name)
-            if p is None:
-                raise native.RpcError(E_NO_SUCH, f"no such parameter: {name}")
+                if p is None:
+                    raise self._missing_locked(name)
             out = str(version).encode(), self._encode_pull(name, p, version,
                                                            want)
             self._m["pull"].record_s(time.monotonic() - t0)
@@ -292,7 +391,10 @@ class ParameterServer:
                         "codec": want, "block": enc.block}
                 ent = (version, meta, enc.wire, int(host.nbytes))
                 with self._mu:
-                    self._enc_cache.setdefault(name, {})[want] = ent
+                    # A Retire that raced this encode popped the name (and
+                    # its cache): serve this response, cache nothing.
+                    if name in self._params:
+                        self._enc_cache.setdefault(name, {})[want] = ent
             codec_mod.note(name, want, ent[3], int(ent[2].nbytes))
             return ent[1], ent[2]
         host = _as_host_array(p)
@@ -312,8 +414,9 @@ class ParameterServer:
 
     def _handle_pull_group(self, request: bytes):
         """PullQ: ONE RPC carrying many pull responses behind a JSON
-        manifest (``groupwire`` shape); per-name misses ride the manifest
-        as ``{"name", "code", "error"}`` entries."""
+        manifest (``groupwire`` shape); per-name misses (a name moved
+        mid-reshard) ride the manifest as ``{"name", "code", "error"}``
+        entries instead of failing the group."""
         t0 = time.monotonic()
         req = json.loads(request.decode())
         want = req.get("codec", "")
@@ -322,9 +425,10 @@ class ParameterServer:
             with self._mu:
                 p = self._params.get(name)
                 version = self._version.get(name)
-            if p is None:
-                entries.append({"name": name, "code": E_NO_SUCH,
-                                "error": f"no such parameter: {name}"})
+                miss = self._missing_locked(name) if p is None else None
+            if miss is not None:
+                entries.append({"name": name, "code": miss.code,
+                                "error": miss.text})
                 continue
             meta, data = self._encoded_entry(name, p, version, want)
             e = dict(meta)
@@ -396,14 +500,198 @@ class ParameterServer:
         self._m["push_group"].record_s(time.monotonic() - t0)
         return json.dumps({"results": results}).encode(), None
 
+    # ---- one-sided publication ----
+
+    def _publish_oneside(self, name: str) -> None:
+        """Publish ``name``'s committed version into the one-sided window
+        as ``[self-describing header|bytes]`` — raw, or the encoded wire
+        form when ``oneside_codec`` engages — written into a fresh arena
+        range the window takes over (the displaced version's range is
+        reclaimed once no reader holds it). Callers hold the name's update
+        lock, so publish order is version order; the D2H is a blocking
+        copy on the stream the update kernel ran on, so it reads the
+        finished tensor. A full arena skips the publish: readers of this
+        name fall back to the RPC path, which serves the same state."""
+        win = self._oneside_window
+        if win is None:
+            return
+        with self._mu:
+            if name not in self._params:
+                return
+            p = self._params[name]
+            version = self._version[name]
+        c = self._oneside_codec
+        if c and codec_mod.eligible(p):
+            # The PullQ encode cache: one D2H and one encode per version
+            # serve both the publication and every quantized RPC pull.
+            meta, data = self._encoded_entry(name, p, version, c)
+            header = pad_header64(codec_mod.pack_header(meta))
+        else:
+            header = pad_header64(codec_mod.pack_header(
+                {"dtype": np_dtype(p.dtype).str, "shape": list(p.shape)}))
+            data = None
+        nbytes = p.numel() * p.element_size() if data is None \
+            else int(data.nbytes)
+        total = len(header) + nbytes
+        try:
+            off = self.arena.alloc(total)
+        except MemoryError:
+            return  # unpublished version: one-sided readers fall back
+        view = self.arena.view(off, total)
+        view[:len(header)] = np.frombuffer(header, dtype=np.uint8)
+        if data is not None:
+            view[len(header):] = data.reshape(-1)
+        elif nbytes:
+            # Raw: one D2H straight into the arena pages.
+            torch.from_numpy(view[len(header):]).copy_(
+                p.detach().contiguous().reshape(-1).view(torch.uint8))
+        try:
+            win.publish(name, off, total, version)
+        except (ValueError, RuntimeError):
+            self.arena.free(off)
+
+    # ---- live-resharding handshake (driven by fleet.Migrator) ----
+
     def _recompute_spread_locked(self) -> None:
         vs = self._version.values()
         self._version_spread = max(vs) - min(vs) if vs else 0
 
+    def _handle_handoff(self, request: bytes):
+        """Freeze ``name`` for export: pushes refuse with E_MOVED from
+        here on; pulls keep serving the frozen version until Retire.
+        Returns {"version"} and the stacked [param, momentum] tensor.
+        Idempotent: a migrator retry re-exports the same frozen state."""
+        req = json.loads(request.decode())
+        name, dest = req["name"], req.get("dest", "")
+        with self._mu:
+            lock = self._update_locks.get(name)
+            if lock is None:
+                raise self._missing_locked(name)
+        with lock:  # an in-flight push completes (or sees frozen) first
+            with self._mu:
+                if name not in self._params:  # retired while we waited
+                    raise self._missing_locked(name)
+                self._state[name] = "frozen"
+                if dest:
+                    self._handoff_dest[name] = dest
+                p = self._params[name]
+                m = self._momenta[name]
+                version = self._version[name]
+        # Frozen names take no more updates and tensors are never written
+        # in place, so stacking outside the locks reads stable tensors;
+        # the trampoline stages the stack with one blocking D2H.
+        return (json.dumps({"name": name, "version": version}).encode(),
+                torch.stack([p, m]))
+
+    def _handle_install(self, request: bytes, att):
+        """Adopt a handed-off tensor in ``pending`` state: pulls serve it,
+        pushes refuse with E_MIGRATING until Commit. Re-installing a
+        pending or frozen name is recovery (a migrator retry, a remap
+        back), not a conflict; only a serving copy refuses (E_EXISTS)."""
+        req = json.loads(request.decode())
+        name = req["name"]
+        version = int(req.get("version", 0))
+        if not isinstance(att, np.ndarray):
+            raise native.RpcError(native.TRPC_EREQUEST,
+                                  "install without a raw tensor payload")
+        if att.ndim < 1 or att.shape[0] != 2:
+            raise native.RpcError(
+                native.TRPC_EREQUEST,
+                f"install expects stacked [param, momentum], "
+                f"got shape {tuple(att.shape)}")
+        # Detach from the sender's arena pages before the handler returns:
+        # blocking copies onto this server's device.
+        param = _device_put_from_view(att[0], self.device)
+        mom = _device_put_from_view(att[1], self.device)
+        with self._mu:
+            if name in self._params and self._state.get(name) not in (
+                    "pending", "frozen"):
+                raise native.RpcError(
+                    E_EXISTS, f"install over live parameter: {name}")
+            self._params[name] = param
+            self._momenta[name] = mom
+            self._version[name] = version
+            self._enc_cache.pop(name, None)  # encoded for the old bytes
+            self._update_locks.setdefault(name, threading.Lock())
+            self._state[name] = "pending"
+            self._moved.pop(name, None)  # keys can migrate back later
+            self._handoff_dest.pop(name, None)  # any old freeze is void
+            self._schema_epoch += 1
+            self._recompute_spread_locked()
+        # Pending names refuse pushes until Commit, so no concurrent
+        # publish races this one out of version order.
+        self._publish_oneside(name)
+        return json.dumps({"name": name, "version": version}).encode(), None
+
+    def _handle_retire(self, request: bytes):
+        """Drop a handed-off tensor and remember its forwarding address:
+        later pulls/pushes answer E_MOVED "moved:<dest>". Idempotent."""
+        req = json.loads(request.decode())
+        name, dest = req["name"], req.get("dest", "")
+        with self._mu:
+            lock = self._update_locks.get(name)
+        if lock is not None:
+            with lock:
+                with self._mu:
+                    self._params.pop(name, None)
+                    self._momenta.pop(name, None)
+                    self._version.pop(name, None)
+                    self._enc_cache.pop(name, None)
+                    self._update_locks.pop(name, None)
+                    self._state.pop(name, None)
+                    self._handoff_dest.pop(name, None)
+                    if dest:  # an empty dest would forward into "moved:"
+                        self._moved[name] = dest
+                    self._schema_epoch += 1
+                    self._recompute_spread_locked()
+                if self._oneside_window is not None:
+                    # Mapped clients miss here and re-route via E_MOVED.
+                    self._oneside_window.unpublish(name)
+        else:
+            with self._mu:
+                if dest and self._moved.get(name) != dest:
+                    # A new redirect is a schema change too: a warm Meta
+                    # cache must not keep validating the old set.
+                    self._moved[name] = dest
+                    self._schema_epoch += 1
+        return json.dumps({"name": name}).encode(), None
+
+    def _handle_commit(self, request: bytes):
+        """pending -> serving: the write-side commit point, ordered by the
+        Migrator after the old owner retired."""
+        name = request.decode()
+        with self._mu:
+            if name not in self._params:
+                raise self._missing_locked(name)
+            self._state.pop(name, None)
+            # A stale forwarding hint must not outlive the commit.
+            self._handoff_dest.pop(name, None)
+        return b"ok", None
+
+    def _check_writable_locked(self, name: str) -> None:
+        """Raise the refusal a push to ``name`` gets now: E_MOVED for a
+        retired or frozen name, E_MIGRATING for a pending one. Call under
+        _mu."""
+        if name not in self._params:
+            raise self._missing_locked(name)
+        state = self._state.get(name)
+        if state == "frozen":
+            dest = self._handoff_dest.get(name)
+            raise native.RpcError(
+                E_MOVED, f"parameter {name} handed off"
+                + (f"; moved:{dest}" if dest else ""))
+        if state == "pending":
+            raise native.RpcError(
+                E_MIGRATING, f"parameter {name} migrating in; retry shortly")
+
     def _apply_update(self, name: str, att) -> int:
         """Detach the gradient from the request pages onto the device
         (the copy completes before the handler returns and the view is
-        released), then apply the fused update out of place."""
+        released), then apply the fused update out of place. A push the
+        server will refuse is refused before it costs a copy or a kernel;
+        the check under the update lock is the one that decides."""
+        with self._mu:
+            self._check_writable_locked(name)
         if isinstance(att, codec_mod.QuantizedView):
             codec_mod.note(name, att.codec, att.nbytes, att.wire_nbytes)
             with tracing.stage("device_put"):
@@ -417,10 +705,11 @@ class ParameterServer:
                 grad = _device_put_from_view(att, self.device)
         with self._mu:
             lock = self._update_locks.get(name)
-        if lock is None:
-            raise native.RpcError(E_NO_SUCH, f"no such parameter: {name}")
+            if lock is None:  # retired since the check above
+                raise self._missing_locked(name)
         with lock:
             with self._mu:
+                self._check_writable_locked(name)
                 p = self._params[name]
                 m = self._momenta[name]
             with tracing.stage("fused_update"):
@@ -438,6 +727,9 @@ class ParameterServer:
                 self._version[name] += 1
                 version = self._version[name]
                 self._recompute_spread_locked()
+            # Inside the update lock: publish order == version order, so
+            # a mapped reader's versions never go backwards.
+            self._publish_oneside(name)
         return version
 
 
@@ -448,10 +740,14 @@ class ParameterClient:
     ``device`` is where pulled tensors land (default CUDA; raises when
     CUDA is absent). ``codec="int8"`` (or ``"fp8e4m3"``) asks for the
     quantized wire, engaged only after the server advertises it in Meta;
-    pushes quantize with error feedback."""
+    pushes quantize with error feedback. ``oneside=True`` reads committed
+    versions straight from the server's published window once its Meta
+    advertises one and the window maps (same host), and takes the RPC
+    path transparently otherwise."""
 
     def __init__(self, addr: str, arena: Optional[TensorArena] = None,
-                 codec: Optional[str] = None, device=None):
+                 codec: Optional[str] = None, device=None,
+                 oneside: bool = False):
         self.device = resolve_device(device)
         self.addr = addr
         self.channel = TensorChannel(addr, arena)
@@ -466,6 +762,12 @@ class ParameterClient:
         # QoS negotiation: None until the first Meta; True when the
         # server advertised "qos": 1.
         self._srv_qos: Optional[bool] = None
+        # One-sided reads: _oneside_reader is None until tried, False once
+        # this client is parked on the RPC path for good (off-host,
+        # disabled, gone), else the mapping.
+        self._oneside = oneside
+        self._oneside_reader = None
+        self._srv_oneside: Optional[bool] = None
 
     def _dev(self, device) -> torch.device:
         return self.device if device is None else resolve_device(device)
@@ -497,6 +799,7 @@ class ParameterClient:
         self._meta_cache = doc["params"]
         self._srv_codecs = tuple(doc.get("codecs", ()))
         self._srv_qos = bool(doc.get("qos", 0))
+        self._srv_oneside = bool(doc.get("oneside", 0))
         self._srv_pushq = bool(doc.get("pushq", 0))
         return doc["params"]
 
@@ -523,6 +826,70 @@ class ParameterClient:
             self.meta()
         return codec_mod.choose(self._codec, self._srv_codecs)
 
+    # ---- one-sided reads ----
+
+    def _ensure_oneside_reader(self):
+        """The mapped window, established on first use: one Meta RPC for
+        the advertisement, one Oneside RPC for the descriptor, one map.
+        Any failure parks this client on the RPC path for good."""
+        r = self._oneside_reader
+        if r is not None:
+            return r if r is not False else None
+        if self._srv_oneside is None:
+            try:
+                self.meta()
+            except native.RpcError:
+                return None  # unknown stays unknown: retry next call
+        if not self._srv_oneside:
+            self._oneside_reader = False
+            return None
+        try:
+            payload, _ = self.channel.call("ParamService/Oneside")
+            r = OnesideReader.map(json.loads(payload.decode()))
+        except (native.RpcError, ValueError):
+            r = None
+        self._oneside_reader = r if r is not None else False
+        return r
+
+    def _drop_oneside_reader(self) -> None:
+        r = self._oneside_reader
+        self._oneside_reader = False  # permanent fallback
+        if r not in (None, False):
+            r.close()
+
+    def _oneside_read(self, name: str, device):
+        """-> (version, value) straight from the peer's published window,
+        or None when this pull should ride the RPC path (each such miss
+        counts as a fallback; the RPC path serves the same committed
+        state)."""
+        m = _metrics()
+        r = self._ensure_oneside_reader()
+        if r is None:
+            m["oneside_fallbacks"].add(1)
+            return None
+        try:
+            version, payload = r.read_np(name)
+        except OnesideGone:
+            self._drop_oneside_reader()
+            m["oneside_fallbacks"].add(1)
+            return None
+        except OnesideMiss:
+            m["oneside_fallbacks"].add(1)
+            return None
+        try:
+            value = consume_oneside_payload(payload, device, note_name=name)
+        except (ValueError, KeyError, struct.error):
+            m["oneside_fallbacks"].add(1)  # undecodable publication
+            return None
+        m["oneside_hits"].add(1)
+        return int(version), value
+
+    def prune_residuals(self, keep) -> int:
+        """Drop error-feedback residuals for names failing ``keep(name)``
+        — the fleet's reshard hook: a name now owned by another shard is
+        never pushed through this client again."""
+        return self._ef.prune(keep)
+
     def _pull_request(self, name: str) -> bytes:
         c = self.negotiated_codec()
         return name.encode() + (b"\x00" + c.encode() if c else b"")
@@ -548,8 +915,13 @@ class ParameterClient:
         return enc
 
     def pull(self, name: str, device=None):
-        """-> (version, tensor on the client's device)."""
+        """-> (version, tensor on the client's device). A client made with
+        ``oneside=True`` reads the published window first."""
         dev = self._dev(device)
+        if self._oneside:
+            got = self._oneside_read(name, dev)
+            if got is not None:
+                return got
         self.pacer.pace()
         try:
             with self._qos_bulk():
@@ -576,6 +948,38 @@ class ParameterClient:
         self.pacer.clear()
         return int(payload.decode())
 
+    # ---- live-resharding handshake (used by fleet.Migrator) ----
+
+    def handoff(self, name: str, dest: str = ""):
+        """Freeze and export ``name`` -> (version, stacked [param,
+        momentum] host array). The server refuses pushes to it from now
+        on."""
+        req = json.dumps({"name": name, "dest": dest}).encode()
+        with self._qos_high():  # the handshake is the control plane
+            payload, stacked = self.channel.call("ParamService/Handoff",
+                                                 request=req)
+        return json.loads(payload.decode())["version"], stacked
+
+    def install(self, name: str, stacked, version: int,
+                commit: bool = False) -> None:
+        """Adopt a stacked [param, momentum] tensor at ``version`` in
+        pending state; ``commit=True`` also opens it for pushes."""
+        req = json.dumps({"name": name, "version": int(version)}).encode()
+        with self._qos_high():
+            self.channel.call("ParamService/Install", array=stacked,
+                              request=req)
+        if commit:
+            self.commit(name)
+
+    def retire(self, name: str, dest: str = "") -> None:
+        req = json.dumps({"name": name, "dest": dest}).encode()
+        with self._qos_high():
+            self.channel.call("ParamService/Retire", request=req)
+
+    def commit(self, name: str) -> None:
+        with self._qos_high():
+            self.channel.call("ParamService/Commit", request=name.encode())
+
     # ---- pipelined multi-tensor hot path (PipelineWindow) ----
 
     def pull_all(self, names=None, device=None, window: int = 4,
@@ -584,9 +988,11 @@ class ParameterClient:
         ``{name: (version, tensor)}``; ``names=None`` pulls every name
         Meta lists.
 
-        Raw: one Pull RPC per tensor, each copied to the device straight
-        from its response view. Negotiated codec: eligible names ride
-        ``PullQ`` in groups of ``group`` per RPC (codes cross, the
+        One-sided first (a client made with ``oneside=True``): every name
+        the mapped window serves skips the RPC plane; the rest ride the RPC
+        path. Raw: one Pull RPC per tensor, each copied to the device
+        straight from its response view. Negotiated codec: eligible names
+        ride ``PullQ`` in groups of ``group`` per RPC (codes cross, the
         dequantize kernel widens on the device); names Meta predicts
         ineligible stay per-tensor raw in the same window.
         """
@@ -599,6 +1005,17 @@ class ParameterClient:
         names = list(names)
         m = _metrics()
         out: Dict[str, tuple] = {}
+        if self._oneside and names:
+            rest = []
+            for n in names:
+                got = self._oneside_read(n, dev)
+                if got is not None:
+                    out[n] = got
+                else:
+                    rest.append(n)
+            if not rest:
+                return out
+            names = rest
         c = self.negotiated_codec()
 
         def on_single(name, payload, view):
@@ -625,6 +1042,8 @@ class ParameterClient:
             self.pacer.clear()
             return out
 
+        # Codec-ineligible names gain nothing from PullQ: Meta predicts
+        # them and they stay per-tensor raw (same window).
         try:
             meta_map = (listed_meta if listed_meta is not None
                         else self.cached_meta())
@@ -655,7 +1074,7 @@ class ParameterClient:
                 off = 0
                 for t in man["tensors"]:
                     if "error" in t:
-                        # After the groupmates decode: a missing tensor
+                        # After the groupmates decode: a moved tensor
                         # must not poison them.
                         if err is None:
                             err = native.RpcError(t["code"], t["error"])
@@ -731,8 +1150,11 @@ class ParameterClient:
         Raw: one Push RPC per tensor. Negotiated codec against a
         PushQ-advertising server: eligible gradients quantize (with error
         feedback) into groups of ``group`` per PushQ RPC; ineligible ones
-        ride per-tensor raw in the same window. A per-name refusal raises
-        :class:`PartialPushError` carrying the confirmed versions.
+        ride per-tensor raw in the same window. A refused call does not
+        cancel the others in flight (a cancelled push may have been
+        applied, and re-sending it would apply it twice): the window
+        drains, and :class:`PartialPushError` then carries the confirmed
+        versions and the refused names.
         """
         m = _metrics()
         versions: Dict[str, int] = {}
@@ -752,10 +1174,16 @@ class ParameterClient:
             else:
                 versions[tag] = int(payload.decode())
 
+        def on_error(tag, err):
+            self.pacer.note(err)
+            for n in (tag if isinstance(tag, tuple) else (tag,)):
+                per_name_err[n] = err
+
         self.pacer.pace()
         try:
             with self._qos_bulk(), PipelineWindow(
-                    self.channel, window, on_reply=on_reply) as win:
+                    self.channel, window, on_reply=on_reply,
+                    on_error=on_error) as win:
                 if not use_group:
                     for name, grad in grads.items():
                         win.submit("ParamService/Push", array=grad,
@@ -811,4 +1239,5 @@ class ParameterClient:
         return versions
 
     def close(self) -> None:
+        self._drop_oneside_reader()
         self.channel.close()

@@ -5,6 +5,7 @@ momenta at start, and a version per name. ``state_from_numpy`` turns such
 a dict (numpy arrays — ``np.asarray`` of the JAX arrays) into the port's
 server state on a device; ``state_to_numpy`` is the reverse. Both servers
 seeded from the same numpy values therefore start from identical bits.
+``fleet_state_to_numpy`` merges a fleet's shards into one such triple.
 
 ``psstate_from_numpy``/``psstate_to_numpy`` do the same for the flagship
 step's ``models.tensor_service.PSState`` (w1, b1, w2, b2, momenta, stats),
@@ -62,7 +63,24 @@ def state_to_numpy(state: PSState):
     return host, mom, dict(state.versions)
 
 
-_PSSTATE_FIELDS = ("w1", "b1", "w2", "b2", "m_w1", "m_w2", "stats")
+def fleet_state_to_numpy(servers):
+    """The states of a fleet's shards (``ParameterServer``s or
+    ``FleetServer``s), merged by name -> ``(params, momenta, versions)``
+    as host numpy dicts, to hold a whole fleet against one server. A name
+    held by two shards (a handoff not yet retired) raises ValueError."""
+    params, momenta, versions = {}, {}, {}
+    for srv in servers:
+        p, m, v = state_to_numpy(getattr(srv, "ps", srv).state())
+        twice = params.keys() & p.keys()
+        if twice:
+            raise ValueError(f"names on more than one shard: {sorted(twice)}")
+        params.update(p)
+        momenta.update(m)
+        versions.update(v)
+    return params, momenta, versions
+
+
+_PSSTATE_FIELDS =("w1", "b1", "w2", "b2", "m_w1", "m_w2", "stats")
 
 
 def psstate_from_numpy(values, device=None):

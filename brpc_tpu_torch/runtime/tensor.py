@@ -41,6 +41,7 @@ import torch
 
 from brpc_tpu_torch.runtime import native
 from brpc_tpu_torch.runtime.native import RpcError, fill_err_text, lib
+from brpc_tpu_torch.utils.device import resolve_device
 
 # App-level error code (param_server.py holds E_NO_SUCH..E_EXISTS at
 # 2040-2043): a typed tensor send whose decoded meta header cannot be
@@ -107,6 +108,35 @@ def _bind_tensor_api(L: ctypes.CDLL) -> ctypes.CDLL:
     L.tbrpc_future_cancel.restype = ctypes.c_int
     L.tbrpc_future_cancel.argtypes = [ctypes.c_void_p]
     L.tbrpc_future_destroy.argtypes = [ctypes.c_void_p]
+    # ---- one-sided tensor reads (published arena windows) ----
+    L.tbrpc_oneside_window_create.restype = ctypes.c_void_p
+    L.tbrpc_oneside_window_create.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32]
+    L.tbrpc_oneside_window_destroy.argtypes = [ctypes.c_void_p]
+    L.tbrpc_oneside_publish.restype = ctypes.c_int
+    L.tbrpc_oneside_publish.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64,
+        ctypes.c_uint64, ctypes.c_int]
+    L.tbrpc_oneside_unpublish.restype = ctypes.c_int
+    L.tbrpc_oneside_unpublish.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    L.tbrpc_oneside_window_describe.restype = ctypes.c_int64
+    L.tbrpc_oneside_window_describe.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t]
+    L.tbrpc_oneside_map.restype = ctypes.c_void_p
+    L.tbrpc_oneside_map.argtypes = [
+        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64]
+    L.tbrpc_oneside_stat.restype = ctypes.c_int
+    L.tbrpc_oneside_stat.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_uint64)]
+    L.tbrpc_oneside_read_into.restype = ctypes.c_int
+    L.tbrpc_oneside_read_into.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p, ctypes.c_uint64,
+        ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64)]
+    L.tbrpc_oneside_unmap.restype = ctypes.c_int
+    L.tbrpc_oneside_unmap.argtypes = [ctypes.c_void_p]
+    L.tbrpc_oneside_stats_json.restype = ctypes.c_int64
+    L.tbrpc_oneside_stats_json.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
     L._tensor_api_bound = True
     return L
 
@@ -150,6 +180,12 @@ def _metrics():
                 "push_bytes": obs.counter("torch_tensor_push_bytes"),
                 # Handler body PLUS response staging into the arena.
                 "serve": obs.latency("torch_tensor_handler"),
+                # One-sided pull routing, as the client decided it: hits
+                # read the peer's published window (no RPC), fallbacks
+                # took the RPC path (unmapped, unpublished, torn budget).
+                "oneside_hits": obs.counter("torch_oneside_pull_hits"),
+                "oneside_fallbacks": obs.counter(
+                    "torch_oneside_pull_fallbacks"),
             }
         return _metrics_cache
 
@@ -182,6 +218,17 @@ def _encode_meta(arr: np.ndarray) -> bytes:
 
     return codec_mod.pack_header({"dtype": arr.dtype.str,
                                   "shape": list(arr.shape)})
+
+
+def pad_header64(header: bytes) -> bytes:
+    """Pad a ``[u32 n|JSON]`` header with trailing spaces until its total
+    length is a multiple of 64, so the payload behind it in a one-sided
+    publication starts 64-byte aligned. JSON parsers ignore the spaces."""
+    pad = -len(header) % 64
+    if pad == 0:
+        return header
+    body = header[4:] + b" " * pad
+    return struct.pack("<I", len(body)) + body
 
 
 def _decode_meta_ex(buf: bytes) -> Tuple[dict, bytes]:
@@ -329,6 +376,196 @@ class TensorArena:
             self.close()
         except Exception:  # noqa: BLE001 — interpreter teardown
             pass
+
+
+class OnesideMiss(Exception):
+    """A one-sided read that must take the RPC path for this call: not
+    published (status 1) or torn past the retry budget (status 2)."""
+
+    def __init__(self, name: str, status: int):
+        super().__init__(f"oneside read miss for {name!r} (status {status})")
+        self.name = name
+        self.status = status
+
+
+class OnesideGone(OnesideMiss):
+    """The mapped window is gone (destroyed window, swept reader claim):
+    unmap and stop trying — the permanent-fallback signal."""
+
+
+class OnesideWindow:
+    """Publisher side of one-sided tensor reads: seqlock-stamped
+    publication slots inside a :class:`TensorArena`, readable by any
+    same-host process that mapped the arena's shm segment. ``publish``
+    hands over a range the caller already wrote; the window frees the
+    displaced range through epoch-based reclamation, never under a reader
+    mid-copy."""
+
+    def __init__(self, arena: TensorArena, n_slots: int = 256,
+                 n_readers: int = 64):
+        self._L = _bind_tensor_api(lib())
+        self.arena = arena
+        self._h = self._L.tbrpc_oneside_window_create(arena.handle, n_slots,
+                                                      n_readers)
+        if not self._h:
+            raise MemoryError("oneside window create failed (arena full?)")
+
+    def publish(self, name: str, off: int, nbytes: int,
+                version: int) -> None:
+        if not self._h:
+            raise RuntimeError("oneside window is closed")
+        if self._L.tbrpc_oneside_publish(self._h, name.encode(), off,
+                                         nbytes, version, 1) != 0:
+            raise ValueError(
+                f"oneside publish({name!r}, off={off}, n={nbytes}) refused")
+
+    def unpublish(self, name: str) -> bool:
+        if not self._h:
+            return False
+        return self._L.tbrpc_oneside_unpublish(self._h, name.encode()) == 0
+
+    def describe(self) -> dict:
+        """The mapping-handshake descriptor (shm name, size, directory
+        offset and the window token a reader validates after mapping)."""
+        if not self._h:
+            raise RuntimeError("oneside window is closed")
+        n = self._L.tbrpc_oneside_window_describe(self._h, None, 0)
+        buf = ctypes.create_string_buffer(n + 1)
+        self._L.tbrpc_oneside_window_describe(self._h, buf, n + 1)
+        doc = json.loads(buf.value.decode())
+        doc["token"] = int(doc["token"])  # shipped as a decimal string
+        return doc
+
+    def close(self) -> None:
+        if self._h:
+            self._L.tbrpc_oneside_window_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+
+def oneside_stats() -> dict:
+    """Process-wide one-sided counters and per-window reclamation state."""
+    L = _bind_tensor_api(lib())
+    n = L.tbrpc_oneside_stats_json(None, 0)
+    buf = ctypes.create_string_buffer(n + 1)
+    L.tbrpc_oneside_stats_json(buf, n + 1)
+    return json.loads(buf.value.decode())
+
+
+class OnesideReader:
+    """Reader side: a same-host mapping of a peer's published window.
+    ``read_np`` copies one committed version out under the reader's epoch
+    pin and raises :class:`OnesideMiss`/:class:`OnesideGone` when the
+    caller should take the RPC path instead."""
+
+    def __init__(self, handle):
+        self._L = _bind_tensor_api(lib())
+        self._h = handle
+
+    @classmethod
+    def map(cls, desc: dict) -> Optional["OnesideReader"]:
+        """Map from a window descriptor; None means stay on the RPC path
+        (off-host shm name, stale token, full reader table)."""
+        L = _bind_tensor_api(lib())
+        try:
+            h = L.tbrpc_oneside_map(str(desc["shm"]).encode(),
+                                    int(desc["bytes"]),
+                                    int(desc["dir_off"]),
+                                    int(desc["token"]))
+        except (KeyError, TypeError, ValueError):
+            return None
+        return cls(h) if h else None
+
+    def read(self, name: str) -> Tuple[int, bytes]:
+        """-> (version, payload bytes) of the committed publication."""
+        version, arr = self.read_np(name)
+        return version, arr.tobytes()
+
+    def read_np(self, name: str) -> Tuple[int, np.ndarray]:
+        """-> (version, OWNED uint8 ndarray): stat for the size, then one
+        native copy into a 64-byte-aligned buffer the caller owns (nothing
+        ever rewrites it, so decode may view it in place)."""
+        if not self._h:
+            raise OnesideGone(name, 3)
+        nbytes = ctypes.c_uint64()
+        version = ctypes.c_uint64()
+        rc = self._L.tbrpc_oneside_stat(self._h, name.encode(),
+                                        ctypes.byref(nbytes),
+                                        ctypes.byref(version))
+        # A republish between stat and read_into may grow the payload:
+        # read_into answers TOO_SMALL (4) with the size it needs — retry.
+        for _ in range(8):
+            if rc not in (0, 4):
+                break
+            need = nbytes.value
+            backing = np.empty(need + 64, np.uint8)
+            shift = (-backing.ctypes.data) % 64
+            arr = backing[shift:shift + need]
+            rc = self._L.tbrpc_oneside_read_into(
+                self._h, name.encode(),
+                ctypes.c_void_p(backing.ctypes.data + shift), need,
+                ctypes.byref(nbytes), ctypes.byref(version))
+            if rc == 0:
+                return int(version.value), arr
+        if rc == 3:
+            raise OnesideGone(name, rc)
+        raise OnesideMiss(name, rc)
+
+    def close(self) -> None:
+        if self._h:
+            self._L.tbrpc_oneside_unmap(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001
+            pass
+
+
+def consume_oneside_payload(payload, device=None,
+                            note_name: Optional[str] = None):
+    """Decode one one-sided payload — the self-describing ``[u32
+    meta-len|meta JSON|bytes]`` framing the Pull RPC ships, raw or
+    quantized, so the two paths cannot return different values for one
+    committed version. Returns a tensor on ``device`` (default CUDA). A
+    quantized payload crosses as codes and scales and the dequantize
+    kernel widens it on the device.
+
+    ``payload`` is ``bytes`` (copied once) or an OWNED uint8 ndarray
+    (:meth:`OnesideReader.read_np`), whose buffer nothing rewrites: the
+    raw branch views it in place."""
+    owned = isinstance(payload, np.ndarray)
+    if owned:
+        (n,) = struct.unpack("<I", payload[:4].tobytes())
+        meta = json.loads(payload[4:4 + n].tobytes().decode())
+        u8 = payload[4 + n:]
+    else:
+        meta, rest = _decode_meta_ex(payload)
+        # bytes are read-only: one copy makes them a buffer of our own.
+        u8 = np.frombuffer(rest, dtype=np.uint8).copy()
+    if "codec" in meta:
+        from brpc_tpu_torch.runtime import codec as codec_mod
+
+        if note_name is not None:
+            nbytes = int(np.prod(meta["shape"], dtype=np.int64)
+                         ) * np.dtype(meta["dtype"]).itemsize
+            codec_mod.note(note_name, meta["codec"], nbytes, int(u8.nbytes))
+        with _stage("dequant"):
+            return _dequant_put_from_view(meta, u8, resolve_device(device),
+                                          codec_mod)
+    arr = u8.view(np.dtype(meta["dtype"])).reshape(tuple(meta["shape"]))
+    dev = resolve_device(device)
+    with _stage("device_put"):
+        t = torch.from_numpy(arr)
+        # The owned buffer outlives the tensor and is never rewritten, so
+        # a CPU target keeps it; a CUDA target copies (blocking H2D).
+        return t if dev.type == "cpu" else t.to(dev)
 
 
 class TensorView:
@@ -479,15 +716,21 @@ class PipelineWindow:
     the wire of tensor k. Submission order == delivery order; each arena
     range is freed as its RPC completes. Replies go to ``on_reply(tag,
     payload, view)`` on the submitting thread, or — without it — are
-    collected by ``flush()``."""
+    collected by ``flush()``. A call's ``RpcError`` aborts the window
+    (every call still in flight is cancelled) unless ``on_error(tag,
+    err)`` is given: then it takes the error and the other calls go on —
+    what a caller needs whose calls are not idempotent, since a cancelled
+    call may have been applied."""
 
     def __init__(self, channel: "TensorChannel", window: int = 4,
-                 on_reply: Optional[Callable] = None):
+                 on_reply: Optional[Callable] = None,
+                 on_error: Optional[Callable] = None):
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
         self.channel = channel
         self.window = window
         self.on_reply = on_reply
+        self.on_error = on_error
         self._q: deque = deque()  # (tag, future, arena_off, arena_len)
         self._results: list = []
         _pipeline_gauge()
@@ -532,6 +775,11 @@ class PipelineWindow:
             try:
                 with _stage("wire_wait"):
                     payload, view = fut.result()
+            except RpcError as e:
+                if self.on_error is None:
+                    raise
+                self.on_error(tag, e)
+                return
             finally:
                 _pipeline_inflight_add(-1)
                 if length:

@@ -23,7 +23,14 @@ checkout. Phases, each fatal on failure:
      (3 steps, bit-identical to a plain replay, 2 K1 launches a step);
      a 4-shard ring replay of the Llama layer through K3 (16 launches),
      equal to one-shot flash attention; dryrun_multichip(1) on a one-rank
-     NCCL group.
+     NCCL group;
+  5. the parameter-server fleet at the same GPT-2 small parameter set,
+     both shards on the card: install, a raw pull_all, an int8 push_all,
+     a second shard joins and the Migrator (on the registry's watch edge)
+     reshards 1 -> 2 while a thread keeps pulling (no torn or stale
+     tensor), another int8 push_all, one-sided pull_alls on each shard
+     against its RPC pulls; the state against a plain replay, placement
+     against the ketama plan, launches against the plan's counts.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after.
@@ -855,6 +862,407 @@ def tensor_service_paths(seed: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 5
+
+FLEET_TAG = "chip_smoke_fleet"
+FLEET_TTL_S = 30  # heartbeats every 10 s: a busy host never drops a shard
+
+
+def _fleet_arenas(shapes: dict, codec) -> dict:
+    """Arena sizes for the fleet at this parameter set, from its largest
+    tensor and its int8 publications (each server keeps two generations
+    of those while displaced ones wait for reclamation)."""
+    import numpy as np
+
+    n_of = [int(np.prod(s)) for s in shapes.values()]
+    largest = 4 * max(n_of)
+    pub = sum((n + 4 * -(-n // codec.DEFAULT_BLOCK)
+               if 4 * n >= codec.MIN_QUANT_BYTES else 4 * n) + 256
+              for n in n_of)
+    return {
+        # publications x2, two stacked [p, m] handoffs and two raw pull
+        # responses of the largest tensor in flight
+        "server": 2 * pub + 6 * largest + (256 << 20),
+        # an install stages the stacked pair; a PushQ window stays under it
+        "client": 2 * largest + (256 << 20),
+        "migrator": 2 * largest + (64 << 20),
+        "small": 64 << 20,
+    }
+
+
+def fleet_path(seed: int, smi: str) -> dict:
+    """Phase 5: the parameter-server fleet at the GPT-2 small parameter
+    set. One card holds both shards. Returns the path's launch counts,
+    which must equal the ones its own plan predicts."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from brpc_tpu_torch.fleet import (FleetClient, FleetServer, Migrator,
+                                      RegistryHub, ShardMap, clear_registry,
+                                      plan_reshard)
+    from brpc_tpu_torch.fleet import gauges
+    from brpc_tpu_torch.observability import metrics
+    from brpc_tpu_torch.ops import fused_update as fu
+    from brpc_tpu_torch.ops import quantize as qz
+    from brpc_tpu_torch.runtime import codec
+    from brpc_tpu_torch.runtime.param_server import ParameterClient
+    from brpc_tpu_torch.runtime.tensor import TensorArena
+
+    gc.collect()  # phase 3's arenas go back to /dev/shm first
+    shapes = gpt2_shapes()
+    names = sorted(shapes)
+    dev = torch.device("cuda")
+    total_bytes = 4 * sum(int(np.prod(s)) for s in shapes.values())
+    elig = {k for k in names
+            if 4 * int(np.prod(shapes[k])) >= codec.MIN_QUANT_BYTES}
+    ar = _fleet_arenas(shapes, codec)
+    # Two servers, the int8 fleet client's two shard clients, the
+    # migrator's two; small ones: the raw fleet client's two, a Meta
+    # client and three pulling clients per shard.
+    need = (2 * ar["server"] + 2 * ar["client"] + 2 * ar["migrator"]
+            + 9 * ar["small"])
+    shm = os.statvfs("/dev/shm")
+    free = shm.f_bavail * shm.f_frsize
+    log(f"fleet: /dev/shm free {free / 2**30:.2f} GiB, arenas need "
+        f"{need / 2**30:.2f} GiB (server {ar['server'] / 2**20:.0f} MiB, "
+        f"client {ar['client'] / 2**20:.0f} MiB, migrator "
+        f"{ar['migrator'] / 2**20:.0f} MiB)")
+    if free < need:
+        fail(f"/dev/shm has {free} bytes free, the fleet's arenas need "
+             f"{need}")
+
+    def gbps(nbytes, dt):
+        return f"{dt:.3f} s, {nbytes / dt / 1e9:.3f} GB/s effective ({smi})"
+
+    host = make_params(shapes, seed)
+    hub = RegistryHub()
+    hub.start()
+    servers, clients = [], []
+    mig = puller = None
+    stop = threading.Event()
+
+    def shard(i):
+        s = FleetServer(hub.hostport, tag=FLEET_TAG, shard_name=f"gpt2_s{i}",
+                        ttl_s=FLEET_TTL_S, device=dev, lr=LR, momentum=BETA,
+                        oneside=True, oneside_codec="int8",
+                        arena=TensorArena(ar["server"]))
+        s.start()
+        servers.append(s)
+        return s
+
+    def client(addr, **kw):
+        c = ParameterClient(f"tpu://{addr}", arena=TensorArena(ar["small"]),
+                            device=dev, **kw)
+        clients.append(c)
+        return c
+
+    try:
+        counters = _counts()
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t_path = time.monotonic()
+        s1 = shard(0)
+        fq = FleetClient(hub.hostport, tag=FLEET_TAG, codec="int8",
+                         device=dev, arena_bytes=ar["client"],
+                         op_deadline_s=300.0)
+        fr = FleetClient(hub.hostport, tag=FLEET_TAG, device=dev,
+                         arena_bytes=ar["small"], op_deadline_s=300.0)
+        clients += [fq, fr]
+        t = time.monotonic()
+        for k in names:
+            fq.install(k, host[k], refresh=False)
+        log(f"fleet install of {len(names)} tensors on one shard: "
+            + gbps(total_bytes, time.monotonic() - t))
+
+        t = time.monotonic()
+        got = fr.pull_all(names)
+        torch.cuda.synchronize()
+        log("fleet pull_all raw (v0): " + gbps(total_bytes,
+                                               time.monotonic() - t))
+        for k in names:
+            v, x = got[k]
+            if v != 0 or not torch.equal(x.cpu(), torch.from_numpy(host[k])):
+                fail(f"fleet raw pull of {k} at v0 != the seeded tensor")
+        del got
+
+        # The plain replay on the card: the exact wire codes (the same
+        # error feedback as the shard client that sent them), the plain
+        # dequantize, the plain update.
+        ref_p = {k: torch.from_numpy(host[k]).to(dev) for k in names}
+        ref_m = {k: torch.zeros_like(v) for k, v in ref_p.items()}
+        at_version = {0: dict(ref_p)}
+
+        def replay(grads, ef_of):
+            """Replays one push; returns the seconds its host half (error
+            feedback and int8 encode, the client's own push work) took."""
+            t_enc = 0.0
+            for k in names:
+                g = grads[k]
+                if k in elig:
+                    ef = ef_of(k)
+                    host_g = g.cpu().numpy()
+                    t0 = time.monotonic()
+                    x = ef.compensate(k, host_g)
+                    e = codec.encode(x, "int8")
+                    ef.settle(k, x, e.dequantized())
+                    t_enc += time.monotonic() - t0
+                    meta = {"dtype": "<f4", "shape": list(shapes[k]),
+                            "codec": "int8", "block": e.block}
+                    q, s = codec.split_wire(meta, e.wire)
+                    g = qz.dequantize_reference(
+                        torch.from_numpy(q.copy()).to(dev),
+                        torch.from_numpy(s.copy()).to(dev), block=e.block,
+                        n=g.numel(), shape=shapes[k])
+                ref_p[k], ref_m[k] = fu.momentum_update_reference(
+                    ref_p[k], ref_m[k], g, lr=LR, beta=BETA)
+            return t_enc
+
+        gen = torch.Generator(device=dev)
+
+        def grads_for(step):
+            gen.manual_seed(seed * 7919 + step)
+            return {k: torch.randn(shapes[k], generator=gen, device=dev)
+                    * 1e-3 for k in names}
+
+        ef1 = codec.ErrorFeedback()
+        grads = grads_for(1)
+        t = time.monotonic()
+        vers = fq.push_all(grads)
+        torch.cuda.synchronize()
+        log("fleet push_all int8 #1: " + gbps(total_bytes,
+                                              time.monotonic() - t))
+        if vers != {k: 1 for k in names}:
+            fail(f"fleet push 1 versions: {vers}")
+        log(f"  host side of that push (replayed): error feedback + int8 "
+            f"encode {replay(grads, lambda k: ef1):.3f} s")
+        at_version[1] = dict(ref_p)
+
+        passes = []  # (end time, tensors moved) of each migrator pass
+        mig = Migrator(hub.hostport, tag=FLEET_TAG, window=4,
+                       arena_bytes=ar["migrator"],
+                       on_reshard=lambda _i, n: passes.append(
+                           (time.monotonic(), n))).start()
+        _wait_for(lambda: passes, 60, "the migrator's first pass")
+        if passes[0][1] or mig.stuck_moves:
+            fail(f"the one-shard pass moved {passes[0][1]} tensors")
+        moved_c = gauges.counter("migration_moved_total")
+        bytes_c = gauges.counter("migration_bytes_total")
+        moved0, bytes0 = moved_c.value(), bytes_c.value()
+
+        # One thread keeps pulling the whole set raw while the reshard
+        # runs: every tensor must equal the replay at its version, and no
+        # version may go backwards.
+        pulls, errors, last_v = [], [], {}
+
+        def pull_loop():
+            while not stop.is_set():
+                t0 = time.monotonic()
+                try:
+                    res = fr.pull_all(names)
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(f"pull: {type(e).__name__}: {e}")
+                    return
+                for k, (v, x) in res.items():
+                    want = at_version.get(v, {}).get(k)
+                    if want is None or not torch.equal(x, want):
+                        errors.append(f"{k} at v{v} != the replay at v{v}")
+                        return
+                    if v < last_v.get(k, 0):
+                        errors.append(f"{k}: v{v} after v{last_v[k]}")
+                        return
+                    last_v[k] = v
+                pulls.append((t0, time.monotonic()))
+
+        puller = threading.Thread(target=pull_loop, daemon=True)
+        puller.start()
+        _wait_for(lambda: pulls or errors, 120, "a pull before the join")
+        placement = {s1.addr: client(s1.addr).meta()}
+        t_join = time.monotonic()
+        s2 = shard(1)
+        target = ShardMap([s1.addr, s2.addr])
+        plan = plan_reshard(dict(placement, **{s2.addr: {}}), target)
+        moved = {m.name for m in plan.moves}
+
+        def moved_since_join():
+            return sum(n for t_end, n in passes if t_end > t_join)
+
+        # Passes without moves (a heartbeat may advance the registry
+        # index) do not count: the one that moves the plan's tensors does.
+        _wait_for(lambda: moved_since_join() >= len(plan.moves) or errors,
+                  600, "the watch edge never triggered the 1 -> 2 reshard")
+        t_done = max(t_end for t_end, n in passes if n)
+        n_after = len(pulls)
+        _wait_for(lambda: len(pulls) > n_after + 1 or errors, 120,
+                  "pulls after the reshard")
+        stop.set()
+        puller.join(timeout=120)
+        if puller.is_alive():
+            fail("the pulling thread did not stop")
+        if errors:
+            fail("pull under the reshard: " + "; ".join(errors[:3]))
+        during = sum(1 for a, b in pulls if a < t_done and b > t_join)
+        log(f"fleet reshard 1 -> 2 shards: {t_done - t_join:.3f} s from "
+            f"the join to the end of the pass; {len(plan.moves)} of "
+            f"{len(names)} tensors moved, {plan.total_bytes / 1e9:.3f} GB "
+            f"of parameters ({2 * plan.total_bytes / 1e9:.3f} GB with "
+            f"momenta), {2 * plan.total_bytes / (t_done - t_join) / 1e9:.3f}"
+            f" GB/s ({smi}); {during} raw pull_alls overlapped it, "
+            f"{len(pulls)} in all, none torn or stale")
+        if during < 1:
+            fail("no pull_all ran during the reshard")
+        if mig.stuck_moves or moved_since_join() != len(plan.moves):
+            fail(f"the reshard moved {moved_since_join()} tensors, the "
+                 f"plan {len(plan.moves)}; {mig.stuck_moves} stuck")
+        if (moved_c.value() - moved0 != len(plan.moves)
+                or bytes_c.value() - bytes0 != plan.total_bytes):
+            fail(f"migrator moved {moved_c.value() - moved0} tensors / "
+                 f"{bytes_c.value() - bytes0} B, the plan "
+                 f"{len(plan.moves)} / {plan.total_bytes}")
+
+        # The moved names' first push goes to the old owner, is refused
+        # there (E_MOVED), and is re-sent by a fresh shard client: their
+        # residual restarts at zero, as FleetClient.refresh pruned it.
+        ef2 = codec.ErrorFeedback()
+        grads = grads_for(2)
+        t = time.monotonic()
+        vers = fq.push_all(grads)
+        torch.cuda.synchronize()
+        log("fleet push_all int8 #2 (after the reshard): "
+            + gbps(total_bytes, time.monotonic() - t))
+        if vers != {k: 2 for k in names}:
+            fail(f"fleet push 2 versions: {vers}")
+        log(f"  host side of that push (replayed): error feedback + int8 "
+            f"encode {replay(grads, lambda k: ef2 if k in moved else ef1):.3f}"
+            f" s, once per name (the client encoded the {len(moved)} moved "
+            "names twice: for the old owner, then the new)")
+        del grads
+
+        # The int8 fleet pull: each shard stream's PullQ codes cross to the
+        # card and K2 widens them there.
+        t = time.monotonic()
+        fleet_q = fq.pull_all(names)
+        torch.cuda.synchronize()
+        log("fleet pull_all int8 (v2): " + gbps(total_bytes,
+                                                time.monotonic() - t))
+
+        # One-sided pulls, shard by shard, against the RPC pulls. The v2
+        # publication filled each server's encode cache, so the PullQ
+        # pulls below encode nothing either.
+        hits = metrics.counter("torch_oneside_pull_hits")
+        falls = metrics.counter("torch_oneside_pull_fallbacks")
+        n_oneside = 0
+        for s in servers:
+            st = s.ps.state()
+            own = sorted(st.params)
+            oc = client(s.addr, oneside=True)
+            qc = client(s.addr, codec="int8")
+            rc = client(s.addr)
+            h0, f0 = hits.value(), falls.value()
+            shard_bytes = 4 * sum(int(np.prod(shapes[k])) for k in own)
+            t = time.monotonic()
+            one = oc.pull_all()
+            torch.cuda.synchronize()
+            t_one = time.monotonic() - t
+            if hits.value() - h0 != len(own) or falls.value() != f0:
+                fail(f"one-sided pull_all on {s.addr}: hits "
+                     f"{hits.value() - h0} for {len(own)} names, fallbacks "
+                     f"{falls.value() - f0}")
+            n_oneside += sum(1 for k in own if k in elig)
+            t = time.monotonic()
+            pq = qc.pull_all()
+            torch.cuda.synchronize()
+            t_q = time.monotonic() - t
+            t = time.monotonic()
+            raw = rc.pull_all()
+            torch.cuda.synchronize()
+            t_raw = time.monotonic() - t
+            log(f"fleet shard {s.addr} ({len(own)} tensors, "
+                f"{shard_bytes / 1e6:.1f} MB): one-sided int8 pull_all "
+                f"{t_one:.3f} s vs RPC PullQ int8 {t_q:.3f} s vs RPC raw "
+                f"{t_raw:.3f} s, encode cache warm for both int8 pulls "
+                f"({smi})")
+            worst = 0.0
+            for k in own:
+                srv = st.params[k]
+                v1, a = one[k]
+                v2, b = pq[k]
+                v3, c = raw[k]
+                if not (v1 == v2 == v3 == 2):
+                    fail(f"{k}: one-sided v{v1}, PullQ v{v2}, raw v{v3}")
+                if not torch.equal(a, b):
+                    fail(f"one-sided pull of {k} != its PullQ int8 pull")
+                vf, f = fleet_q[k]
+                if vf != 2 or not torch.equal(f, b):
+                    fail(f"fleet int8 pull of {k} (v{vf}) != the shard's "
+                         "PullQ int8 pull")
+                if not torch.equal(c, srv):
+                    fail(f"raw pull of {k} != the server tensor")
+                if k in elig:
+                    worst = max(worst, _within_bound(srv, a, "int8", codec))
+                elif not torch.equal(a, srv):
+                    fail(f"one-sided pull of ineligible {k} != server")
+            log(f"  one-sided == fleet int8 pull == PullQ bit for bit; "
+                f"worst error/bound {worst:.3f}")
+            del one, pq, raw
+        del fleet_q
+        torch.cuda.synchronize()
+        launches = {name: c.value for name, c in counters.items()}
+        log(f"fleet path: {time.monotonic() - t_path:.3f} s; launches "
+            f"{launches}")
+
+        # Placement, versions and state against the plan and the replay.
+        for s in servers:
+            st = s.ps.state()
+            want = sorted(k for k in names if target.owner(k) == s.addr)
+            if sorted(st.params) != want:
+                fail(f"{s.addr} holds {len(st.params)} names, its ketama "
+                     f"share is {len(want)}")
+            for k in want:
+                if st.versions[k] != 2:
+                    fail(f"{k} at version {st.versions[k]}, not 2")
+                if not (torch.equal(st.params[k], ref_p[k])
+                        and torch.equal(st.momenta[k], ref_m[k])):
+                    fail(f"{k} on {s.addr}: state != plain replay; max err "
+                         f"{(st.params[k] - ref_p[k]).abs().max().item()}")
+        owned_by = {s.addr: len(s.ps.state().params) for s in servers}
+        log(f"fleet state == plain replay (bit for bit, momenta "
+            f"included) on both shards {owned_by}; every name on its "
+            f"ketama owner; {len(moved)} moved == the plan's owner diff")
+        want = {"brpc_fused_momentum": 2 * len(names),
+                "brpc_dequant_int8": 4 * len(elig) + n_oneside,
+                "brpc_dequant_fp8e4m3": 0, "brpc_flash_carry": 0}
+        log(f"launches on the fleet path: {launches} (expected {want}: "
+            f"K1 one per name per push; K2 one per eligible name per push, "
+            f"per fleet int8 pull, per one-sided read and per PullQ read)")
+        if launches != want:
+            fail(f"fleet launch counts {launches} != expected {want}")
+        return {k: v for k, v in launches.items() if v}
+    finally:
+        stop.set()
+        if puller is not None:
+            puller.join(timeout=120)
+        if mig is not None:
+            mig.stop()
+        for c in clients:
+            c.close()
+        for s in servers:
+            s.stop()
+            s.ps.server.close()
+        clear_registry()
+        hub.stop()
+
+
+def _wait_for(cond, timeout_s: float, what: str) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"timed out after {timeout_s} s: {what}")
+        time.sleep(0.01)
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -896,6 +1304,9 @@ def main() -> int:
     t0 = time.monotonic()
     by_path.update(tensor_service_paths(args.seed))
     log(f"== phase 4 (TensorService paths) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    by_path["fleet"] = fleet_path(args.seed, smi)
+    log(f"== phase 5 (parameter-server fleet) {time.monotonic() - t0:.1f} s")
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()
                                  if c.get(r["name"])}

@@ -104,6 +104,101 @@ def test_server_on_the_card_goes_through_the_kernels(cuda):
         ps.stop()
 
 
+def test_fleet_reshard_and_oneside_pull_on_the_card(cuda):
+    """A 2-shard fleet on the card: pushes launch K1 on the shard, a live
+    1 -> 2 reshard keeps the state equal to a plain replay, and an int8
+    fleet pull and an int8 one-sided pull launch K2 on the reader, equal
+    to the PullQ pull."""
+    import time
+
+    from brpc_tpu_torch.fleet import (FleetClient, FleetServer, Migrator,
+                                      RegistryHub, ShardMap, clear_registry)
+    from brpc_tpu_torch.runtime.param_server import ParameterClient
+    from brpc_tpu_torch.runtime.state import fleet_state_to_numpy
+
+    tag = "card_fleet"
+    names = [f"w{i:02d}" for i in range(8)]
+    rng = np.random.default_rng(1)
+    params = {n: rng.standard_normal((64, 64)).astype(np.float32)
+              for n in names}
+    grads = [{n: torch.from_numpy(rng.standard_normal((64, 64)).astype(
+        np.float32)).to(cuda) for n in names} for _ in range(2)]
+    hub = RegistryHub()
+    hub.start()
+    servers, clients, passes = [], [], []
+
+    def shard():
+        s = FleetServer(hub.hostport, tag=tag, ttl_s=30, device=cuda,
+                        lr=0.05, momentum=0.8, oneside=True,
+                        oneside_codec="int8")
+        s.start()
+        servers.append(s)
+        return s
+
+    def wait(cond, what):
+        deadline = time.monotonic() + 60
+        while not cond():
+            assert time.monotonic() < deadline, what
+            time.sleep(0.01)
+
+    mig = None
+    try:
+        s1 = shard()
+        fc = FleetClient(hub.hostport, tag=tag, device=cuda)
+        clients.append(fc)
+        for n, v in params.items():
+            fc.install(n, v)
+        mig = Migrator(hub.hostport, tag=tag,
+                       on_reshard=lambda _i, k: passes.append(k)).start()
+        wait(lambda: passes, "the migrator's first pass")
+        k1 = fu.LAUNCHES.value
+        assert fc.push_all(grads[0]) == {n: 1 for n in names}
+        assert fu.LAUNCHES.value - k1 == len(names)
+        s2 = shard()
+        moved = [n for n in names
+                 if ShardMap([s1.addr, s2.addr]).owner(n) == s2.addr]
+        wait(lambda: sum(passes) == len(moved), "the 1 -> 2 move")
+        assert fc.push_all(grads[1]) == {n: 2 for n in names}
+        p, m, v = fleet_state_to_numpy(servers)
+        assert v == {n: 2 for n in names}
+        for n in names:
+            rp = torch.from_numpy(params[n]).to(cuda)
+            rm = torch.zeros_like(rp)
+            for g in grads:
+                rp, rm = fu.momentum_update_reference(rp, rm, g[n], lr=0.05,
+                                                      beta=0.8)
+            assert np.array_equal(p[n], rp.cpu().numpy())
+            assert np.array_equal(m[n], rm.cpu().numpy())
+        fq = FleetClient(hub.hostport, tag=tag, codec="int8", device=cuda)
+        clients.append(fq)
+        k2 = qz.LAUNCHES_INT8.value
+        fleet_q = fq.pull_all(names)
+        assert qz.LAUNCHES_INT8.value - k2 == len(names)
+        for s in servers:
+            oc = ParameterClient(f"tpu://{s.addr}", oneside=True,
+                                 device=cuda)
+            qc = ParameterClient(f"tpu://{s.addr}", codec="int8",
+                                 device=cuda)
+            clients += [oc, qc]
+            k2 = qz.LAUNCHES_INT8.value
+            one = oc.pull_all()
+            assert qz.LAUNCHES_INT8.value - k2 == len(one) > 0
+            pq = qc.pull_all()
+            for n, (ver, t) in one.items():
+                assert ver == pq[n][0] == 2 and t.device.type == "cuda"
+                assert torch.equal(t, pq[n][1])
+                assert fleet_q[n][0] == 2 and torch.equal(fleet_q[n][1], t)
+    finally:
+        if mig is not None:
+            mig.stop()
+        for c in clients:
+            c.close()
+        for s in servers:
+            s.stop()
+        clear_registry()
+        hub.stop()
+
+
 # K3 against its plain version, run with the kernel's own k tile so p is
 # rounded at the same running maxima. Tolerances: m to 1e-4 (the same fp32
 # dot products summed in another order), l to 1e-4 relative, acc/l to 4e-3

@@ -168,3 +168,24 @@ def test_lock_file_and_torch_tree_are_ignored_by_git():
         ignored = f.read().split()
     assert "native/build.lock" in ignored
     assert "native/build*/" in ignored  # covers native/build_torch/
+
+
+def test_port_refuses_to_load_beside_another_copy(tmp_path):
+    # Two copies of the runtime in one process name their shm segments
+    # alike, so the port will not load a second one.
+    mine = tmp_path / "a" / "libbrpc_tpu.so"
+    other = tmp_path / "b" / "libbrpc_tpu.so"
+    for p in (mine, other):
+        p.parent.mkdir()
+        p.write_bytes(b"")
+    maps = tmp_path / "maps"
+    maps.write_text(f"7f00-7f01 r-xp 0 08:01 1 {other}\n"
+                    "7f02-7f03 r--p 0 08:01 2 /usr/lib/libc.so.6\n")
+    with pytest.raises(RuntimeError, match="already loaded"):
+        tnative.refuse_second_copy(str(mine), str(maps))
+    maps.write_text(f"7f00-7f01 r-xp 0 08:01 1 {mine}\n")
+    tnative.refuse_second_copy(str(mine), str(maps))
+    tnative.refuse_second_copy(str(mine), str(tmp_path / "no_such_maps"))
+    # This process maps the library the port loaded, and no other.
+    tnative.lib()
+    tnative.refuse_second_copy(tnative.library_path())

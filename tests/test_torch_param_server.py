@@ -154,9 +154,14 @@ def test_port_server_answers_unported_methods_with_e_no_such():
     ps, port = _start_server("torch")
     cl = _client("torch", port)
     try:
-        for method in ("Handoff", "Install", "Oneside", "Nope"):
+        # Only what the JAX server lacks too answers E_NO_SUCH: a method
+        # neither serves, one-sided reads on a server that publishes none,
+        # and the handshake on a name the server does not hold.
+        for method, request in (
+                ("Nope", b"{}"), ("Oneside", b""),
+                ("Handoff", b'{"name": "missing"}'), ("Commit", b"missing")):
             with pytest.raises(tnative.RpcError) as ei:
-                cl.channel.call(f"ParamService/{method}", request=b"{}")
+                cl.channel.call(f"ParamService/{method}", request=request)
             assert ei.value.code == tps.E_NO_SUCH
         with pytest.raises(tnative.RpcError) as ei:
             cl.pull("missing")
