@@ -238,15 +238,17 @@ class LayeredMLP:
     propagating the delta one layer down. fp32 throughout; the manual
     backward equals autograd of the same stack.
 
-    Single device only (``mesh=None``): the mesh form goes with the step
-    drivers of the training plane (ROADMAP A9).
+    Single device only (``mesh=None``): the mesh form needs a design of
+    its own in a one-process-per-rank port — which rank drives the wire
+    and how pulled weights reach the others (ROADMAP A9b).
     """
 
     def __init__(self, sizes, mesh=None, seed: int = 0, device=None):
         if mesh is not None:
             raise NotImplementedError(
-                "LayeredMLP over a mesh is not ported yet: it comes with "
-                "the training plane's step drivers (ROADMAP A9)")
+                "LayeredMLP over a mesh is not ported yet: with one "
+                "process per rank it needs its own design of which rank "
+                "drives the wire (ROADMAP A9b)")
         if len(sizes) < 2:
             raise ValueError("need at least one layer (two sizes)")
         self.sizes = list(sizes)

@@ -265,6 +265,11 @@ class ErrorFeedback:
     def settle(self, name: str, x: np.ndarray, dq: np.ndarray) -> None:
         self._residual[name] = x - dq
 
+    def set_residual(self, name: str, res: np.ndarray) -> None:
+        """``settle`` for an encoder that already produced ``x - dq`` in
+        its own pass (the collectives' fused int8 encoder)."""
+        self._residual[name] = res
+
     def clear(self, name: str) -> None:
         self._residual.pop(name, None)
 

@@ -10,6 +10,13 @@ seeded from the same numpy values therefore start from identical bits.
 ``psstate_from_numpy``/``psstate_to_numpy`` do the same for the flagship
 step's ``models.tensor_service.PSState`` (w1, b1, w2, b2, momenta, stats),
 and ``layered_params_from_numpy`` for ``LayeredMLP``'s parameter dict.
+
+The training plane's state, as numpy both ways: ``stage_params`` picks a
+pipeline stage's layers out of a full ``LayeredMLP`` set, ``tp_shards``
+cuts a rank's tensor-parallel shards by ``shard_span``, and
+``driver_state_to_numpy`` reads a step driver's masters and momenta (which
+``CollectiveStepDriver.prime(params, momenta)`` takes back), so a parity
+test can start either package's driver mid-trajectory.
 """
 
 from __future__ import annotations
@@ -107,3 +114,46 @@ def layered_params_from_numpy(params: Dict[str, object],
     CUDA), for ``tensor_service.LayeredMLP``."""
     dev = resolve_device(device)
     return {k: to_tensor(v, dev) for k, v in params.items()}
+
+
+def tensors_to_numpy(tensors: Dict[str, object]) -> Dict[str, np.ndarray]:
+    """``{name: tensor or array}`` -> ``{name: host numpy copy}``."""
+    return {k: (v.detach().cpu().numpy().copy()
+                if isinstance(v, torch.Tensor) else np.array(v))
+            for k, v in tensors.items()}
+
+
+def stage_params(params: Dict[str, object], sizes, stage: int,
+                 stages: int) -> Dict[str, np.ndarray]:
+    """The layers of pipeline stage ``stage`` (of ``stages``) out of a
+    full ``LayeredMLP`` parameter set, as numpy."""
+    from brpc_tpu_torch.runtime.pp_sched import stage_layers
+
+    lo, hi = stage_layers(len(sizes) - 1, stages)[stage]
+    names = [f"layer{k:02d}" for k in range(lo, hi)]
+    return tensors_to_numpy({n: params[n] for n in names})
+
+
+def tp_shards(params: Dict[str, object], rank: int,
+              world: int) -> Dict[str, np.ndarray]:
+    """Rank ``rank``'s tensor-parallel shards of a full ``LayeredMLP``
+    set, as numpy: layer k split on ``tp_layers.shard_axis(k)`` at
+    ``shard_span``."""
+    from brpc_tpu_torch.models.tp_layers import shard_axis, shard_span
+
+    out = {}
+    for k, (name, w) in enumerate(sorted(tensors_to_numpy(params).items())):
+        axis = shard_axis(k)
+        lo, ln = shard_span(w.shape[axis], rank, world)
+        out[name] = np.ascontiguousarray(
+            w[:, lo:lo + ln] if axis == 1 else w[lo:lo + ln, :])
+    return out
+
+
+def driver_state_to_numpy(driver):
+    """A step driver's ``(masters, momenta)`` as numpy dicts (a
+    ``CollectiveStepDriver``; a ``PipelineStageDriver``'s harness params
+    and momenta)."""
+    params = (driver.params() if hasattr(driver, "params")
+              else driver.harness.params())
+    return tensors_to_numpy(params), tensors_to_numpy(driver.momenta())

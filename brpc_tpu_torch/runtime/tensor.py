@@ -735,6 +735,21 @@ class PipelineWindow:
         self._results: list = []
         _pipeline_gauge()
 
+    def inflight(self) -> int:
+        return len(self._q)
+
+    def complete_one(self) -> bool:
+        """Drain the OLDEST in-flight call only (its reply goes through
+        ``on_reply`` or to the collected results); False when nothing is
+        in flight. The step driver's per-tensor confirm point: ``opt:k``
+        drains exactly until push k's reply lands instead of flushing the
+        whole window. A failure carries its call's tag as
+        ``e.pipeline_tag``."""
+        if not self._q:
+            return False
+        self._complete_oldest()
+        return True
+
     def submit(self, service_method: str, array=None, request: bytes = b"",
                tag=None, encoder=None) -> None:
         """Stage ``array`` (optional) into the channel arena and start the

@@ -30,7 +30,16 @@ checkout. Phases, each fatal on failure:
      reshards 1 -> 2 while a thread keeps pulling (no torn or stale
      tensor), another int8 push_all, one-sided pull_alls on each shard
      against its RPC pulls; the state against a plain replay, placement
-     against the ketama plan, launches against the plan's counts.
+     against the ketama plan, launches against the plan's counts;
+  6. the training plane at the GPT-2 small MLP stack (768 -> [3072 ->
+     768] x 12, 24 layers, 56,623,104 fp32 weights, a batch of 8 x 1024
+     tokens): the overlapped parameter-server driver (serial, overlapped,
+     int8), the collective data-parallel driver over two CollectiveGroup
+     members (raw, int8 with and without error feedback, tracked), a
+     2-stage 1F1B pipeline over WirePipe and 2-way tensor parallelism
+     (depth cut to 2 blocks); each against a plain replay, bit for bit
+     where the arithmetic is the same, at the JAX package's pinned
+     tolerance where the batch is split.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after.
@@ -53,6 +62,11 @@ import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+# Deterministic cuBLAS reductions whatever the concurrency: phase 6's
+# data-parallel members compute on two threads at once and are held bit
+# for bit against a serial replay. Set before CUDA initializes.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # OpenAI's published gpt2 (124M) config.
 GPT2_SMALL = {"n_layer": 12, "n_embd": 768, "n_ctx": 1024, "vocab": 50257}
@@ -77,6 +91,11 @@ BENCH_FLASH = {"b": 8, "h": 8, "hkv": 8, "s": 4096, "d": 128,
 TRAIN_STEP = {"batch": 8 * 1024, "din": 768, "dh": 3072, "dout": 768}
 TRAIN_STEPS = 3
 RING_SHARDS = 4
+# Phase 6: GPT-2 small's MLP blocks stacked at full width and depth (n_embd
+# 768, n_inner 4 x 768, n_layer 12), one batch of 8 x 1024 tokens.
+PLANE = {"sizes": [768] + [3072, 768] * 12, "batch": 8 * 1024,
+         "ps_steps": 3, "dp_steps": 2, "pp_steps": 2, "microbatches": 4,
+         "tp_sizes": [768, 3072, 768, 3072, 768], "tp_steps": 2}
 
 
 def fail(msg: str) -> None:
@@ -749,10 +768,11 @@ def _counts() -> dict:
             "brpc_flash_carry": fa.LAUNCHES}
 
 
-def _drive(label: str, fn, want: dict) -> dict:
-    """Run one path with every launch count set to 0 just before it; fail
-    unless the counts read just after are ``want`` (names not in ``want``
-    must stay 0)."""
+def _counted(label: str, fn, want):
+    """Run ``fn`` with every launch count set to 0 just before it; fail
+    unless the counts read just after equal ``want`` (a dict, or a
+    function of fn's result giving one; names not in it must stay 0).
+    Returns (fn's result, the non-zero counts)."""
     import torch
 
     counters = _counts()
@@ -760,15 +780,16 @@ def _drive(label: str, fn, want: dict) -> dict:
         c.reset()
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
     dt = time.monotonic() - t0
     got = {name: c.value for name, c in counters.items()}
+    want = want(out) if callable(want) else want
     expect = {name: want.get(name, 0) for name in counters}
     log(f"{label}: {dt:.3f} s; launches {got}")
     if got != expect:
         fail(f"{label}: launch counts {got} != expected {expect}")
-    return {name: n for name, n in got.items() if n}
+    return out, {name: n for name, n in got.items() if n}
 
 
 def tensor_service_paths(seed: int) -> dict:
@@ -795,7 +816,7 @@ def tensor_service_paths(seed: int) -> dict:
             steps.append((time.monotonic() - t_step, float(loss)))
         steps.append(state)
 
-    launches["train_step"] = _drive(
+    _, launches["train_step"] = _counted(
         f"train_step x{TRAIN_STEPS} {TRAIN_STEP}", train,
         {"brpc_fused_momentum": 2 * TRAIN_STEPS})
     state = steps.pop()
@@ -835,7 +856,7 @@ def tensor_service_paths(seed: int) -> dict:
             outs.append(fa.flash_finalize(l, acc, torch.float32))
         folds[1].record()
 
-    launches["ring_replay"] = _drive(
+    _, launches["ring_replay"] = _counted(
         f"ring replay, {n} shards x {n} hops", ring,
         {"brpc_flash_carry": n * n})
     log(f"  ring replay device time (CUDA events, {n * n} K3 folds with "
@@ -856,7 +877,7 @@ def tensor_service_paths(seed: int) -> dict:
     del q, k, v, outs, ring_out, one_shot, m, l, acc
 
     # -- the dryrun entry point on a one-rank NCCL group
-    launches["dryrun_multichip(1)"] = _drive(
+    _, launches["dryrun_multichip(1)"] = _counted(
         "dryrun_multichip(1), one-rank NCCL group",
         lambda: ts.dryrun_multichip(1), {"brpc_flash_carry": 2})
     return launches
@@ -1255,6 +1276,553 @@ def fleet_path(seed: int, smi: str) -> dict:
         hub.stop()
 
 
+# ---------------------------------------------------------------- phase 6
+
+PLANE_TAG = "chip_smoke_plane"
+
+
+def _threads(n: int, fn) -> list:
+    """``fn(r)`` on n threads -> results by r; a member's error fails the
+    phase (on this thread: ``fail`` exits only from the main thread)."""
+    out, errs = [None] * n, []
+
+    def worker(r):
+        try:
+            out[r] = fn(r)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errs.append(f"member {r}: {type(e).__name__}: {e}")
+
+    ts = [threading.Thread(target=worker, args=(r,)) for r in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    if errs:
+        fail("; ".join(errs))
+    return out
+
+
+def _step_line(i: int, dt: float, loss: float, st: dict) -> str:
+    return (f"  step {i}: {dt * 1e3:.1f} ms wall, loss {loss:.6f}; "
+            f"compute_ms {st['compute_ms']:.1f}, exposed_comm_ms "
+            f"{st['exposed_comm_ms']:.1f}, overlapped_comm_ms "
+            f"{st['overlapped_comm_ms']:.1f}")
+
+
+def _equal_state(label: str, got: dict, want: dict) -> None:
+    import torch
+
+    for k, v in want.items():
+        if not torch.equal(got[k], v):
+            fail(f"{label}: {k} != the plain replay; max err "
+                 f"{(got[k] - v).abs().max().item()}")
+
+
+def _close_state(label: str, got: dict, want: dict, rtol: float = 2e-5,
+                 atol: float = 1e-6) -> float:
+    """The JAX package's pinned PP/TP tolerance; returns the worst
+    |err| / (atol + rtol |want|)."""
+    worst = 0.0
+    for k, v in want.items():
+        ratio = ((got[k] - v).abs() / (atol + rtol * v.abs())).max().item()
+        worst = max(worst, ratio)
+        if not ratio <= 1.0:
+            fail(f"{label}: {k} outside rtol {rtol}, atol {atol} of the "
+                 f"plain replay (ratio {ratio:.3f})")
+    return worst
+
+
+def _drift(got: dict, want: dict, rtol: float = 2e-5,
+           atol_rms: float = 1e-3) -> tuple:
+    """How far ``got`` lies from ``want``: the worst |err| / (atol +
+    rtol |want|) with atol ``atol_rms`` times each tensor's RMS, the
+    number of elements past 1, and the worst ||err|| / ||want||."""
+    worst, over, rel = 0.0, 0, 0.0
+    for k, v in want.items():
+        err = (got[k] - v).abs()
+        r = err / (atol_rms * v.square().mean().sqrt() + rtol * v.abs())
+        worst = max(worst, r.max().item())
+        over += int((r > 1.0).sum().item())
+        rel = max(rel, (err.norm() / v.norm()).item())
+    return worst, over, rel
+
+
+def training_plane(seed: int, smi: str) -> dict:
+    """Phase 6: the step drivers, the pipeline and tensor parallelism at
+    the GPT-2 small MLP stack. Returns each run's launch counts."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from brpc_tpu_torch.collectives import ring as ring_sched
+    from brpc_tpu_torch.collectives.group import CollectiveGroup
+    from brpc_tpu_torch.fleet import RegistryHub, clear_registry
+    from brpc_tpu_torch.models.pipeline import StagedMLP
+    from brpc_tpu_torch.models.tensor_service import LayeredMLP
+    from brpc_tpu_torch.models.tp_layers import LocalRing, TPShardedMLP
+    from brpc_tpu_torch.ops import fused_update as fu
+    from brpc_tpu_torch.ops import quantize as qz
+    from brpc_tpu_torch.runtime import codec
+    from brpc_tpu_torch.runtime.param_server import (ParameterClient,
+                                                     ParameterServer)
+    from brpc_tpu_torch.runtime.pp_sched import (PipelineStageDriver,
+                                                 WirePipe, bubble_fraction)
+    from brpc_tpu_torch.runtime.step_driver import (CollectiveStepDriver,
+                                                    OverlappedStepDriver)
+    from brpc_tpu_torch.runtime.tensor import TensorArena
+
+    gc.collect()
+    dev = torch.device("cuda")
+    sizes, batch = PLANE["sizes"], PLANE["batch"]
+    h = LayeredMLP(sizes, seed=seed, device=dev)
+    names = h.names
+    init = {k: v.cpu().numpy() for k, v in h.init_params().items()}
+    n_w = sum(v.size for v in init.values())
+    x, y = h.data(batch, seed=seed + 1)
+    log(f"training plane: {len(names)} layers {sizes[:3]}..., {n_w} fp32 "
+        f"weights ({4 * n_w / 1e6:.1f} MB), batch {batch}; "
+        f"sys.setswitchinterval(0.0005) for this phase, so the wire "
+        f"lanes' threads do not hold the GIL for whole scheduler quanta")
+    launches = {}
+
+    def wire_view(t):
+        """A pulled tensor as the int8 wire delivers it: the server's
+        encode, the plain dequantize."""
+        e = codec.encode(t.cpu().numpy(), "int8")
+        return _dequant_plain(e, t.shape)
+
+    def _dequant_plain(e, shape):
+        meta = {"dtype": "<f4", "shape": list(shape), "codec": "int8",
+                "block": e.block}
+        q, s = codec.split_wire(meta, e.wire)
+        return qz.dequantize_reference(
+            torch.from_numpy(q.copy()).to(dev),
+            torch.from_numpy(s.copy()).to(dev), block=e.block,
+            n=int(np.prod(shape)), shape=tuple(shape))
+
+    def replay(steps, cname=None):
+        """LayeredMLP.grads, then momentum_update_reference; with int8,
+        the exact wire codes both ways. -> (losses, [(p, m) per step])."""
+        p = {k: torch.from_numpy(init[k]).to(dev) for k in names}
+        m = {k: torch.zeros_like(v) for k, v in p.items()}
+        ef = codec.ErrorFeedback()
+        losses, states = [], []
+        for _ in range(steps):
+            w = p if cname is None else {k: wire_view(p[k]) for k in names}
+            gs, loss = h.grads(w, x, y)
+            losses.append(loss)
+            for k in names:
+                g = gs[k]
+                if cname is not None:
+                    xq = ef.compensate(k, g.cpu().numpy())
+                    e = codec.encode(xq, "int8")
+                    ef.settle(k, xq, e.dequantized())
+                    g = _dequant_plain(e, g.shape)
+                p[k], m[k] = fu.momentum_update_reference(
+                    p[k], m[k], g, lr=LR, beta=BETA)
+            states.append((dict(p), dict(m)))
+        return losses, states
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(0.0005)
+    hub = None
+    try:
+        # -- 1. the overlapped parameter-server driver
+        steps = PLANE["ps_steps"]
+
+        def ps_run(label, overlap, cname):
+            ps = ParameterServer(init, lr=LR, momentum=BETA,
+                                 arena=TensorArena(256 << 20), device=dev)
+            cl = ParameterClient(f"tpu://127.0.0.1:{ps.start()}",
+                                 arena=TensorArena(256 << 20), codec=cname,
+                                 device=dev)
+            try:
+                cl.meta()
+
+                def run():
+                    d = OverlappedStepDriver(cl, h, overlap=overlap,
+                                             window=4)
+                    d.prime()
+                    out = []
+                    for _ in range(steps):
+                        torch.cuda.synchronize()
+                        t = time.monotonic()
+                        loss = d.step(x, y)
+                        torch.cuda.synchronize()
+                        out.append((time.monotonic() - t, loss,
+                                    dict(d.last_stats)))
+                    return out
+
+                # K2: the client's prime pulls, then per step the server
+                # widens every int8 push and the client every int8 pull.
+                k2 = len(names) * (1 + 2 * steps) if cname else 0
+                out, got = _counted(label, run, {
+                    "brpc_fused_momentum": len(names) * steps,
+                    "brpc_dequant_int8": k2})
+                for i, (dt, loss, st) in enumerate(out):
+                    log(_step_line(i + 1, dt, loss, st) + f" ({smi})")
+                state = ps.state()
+                if set(state.versions.values()) != {steps}:
+                    fail(f"{label}: versions {set(state.versions.values())}")
+                return out, state, got
+            finally:
+                cl.close()
+                ps.stop()
+                ps.server.close()
+
+        ref_losses, ref_states = replay(steps)
+        # Normal / sqrt(fan-in) weights keep a ReLU stack's second moment
+        # only up to the halving each ReLU makes: 23 of them leave the
+        # head little signal, and the loss moves below fp32's resolution.
+        head_in = h.forward({k: torch.from_numpy(v).to(dev)
+                             for k, v in init.items()}, x, y)["acts"][-2]
+        log(f"  the head's input RMS at init: "
+            f"{head_in.square().mean().sqrt().item():.3e} (x's: "
+            f"{x.square().mean().sqrt().item():.3f}); the loss stays "
+            "flat to fp32 at this depth, so the trajectories are held "
+            "to their replays, not to a falling loss")
+        del head_in
+        for label, overlap in (("serial", False), ("overlapped", True)):
+            out, state, got = ps_run(
+                f"parameter-server driver, {label}, {steps} steps", overlap,
+                None)
+            launches[f"ps_driver_{label}"] = got
+            _equal_state(f"ps driver {label} params", state.params,
+                         ref_states[-1][0])
+            _equal_state(f"ps driver {label} momenta", state.momenta,
+                         ref_states[-1][1])
+            losses = [loss for _dt, loss, _st in out]
+            if losses != ref_losses:
+                fail(f"ps driver {label}: losses {losses}, replay "
+                     f"{ref_losses}")
+            if overlap and not sum(st["overlapped_comm_ms"]
+                                   for _d, _l, st in out) > 0.0:
+                fail("the overlapped driver overlapped no communication")
+        log("  both raw trajectories == the plain replay on the server "
+            "(bit for bit, momenta included); losses "
+            + ", ".join(f"{v:.6f}" for v in ref_losses))
+        out, state, got = ps_run(f"parameter-server driver, int8, {steps} "
+                                 "steps", True, "int8")
+        launches["ps_driver_int8"] = got
+        q_losses, q_states = replay(steps, "int8")
+        _equal_state("ps driver int8 params", state.params, q_states[-1][0])
+        _equal_state("ps driver int8 momenta", state.momenta,
+                     q_states[-1][1])
+        losses = [loss for _dt, loss, _st in out]
+        if losses != q_losses:
+            fail(f"ps driver int8: losses {losses}, replay {q_losses}")
+        log("  int8 trajectory == the replay of the exact wire codes (bit "
+            "for bit); losses " + ", ".join(f"{v:.6f}" for v in q_losses))
+        del state, q_states
+        gc.collect()
+
+        # -- 2. the collective data-parallel driver, two members
+        hub = RegistryHub()
+        hub.start()
+        steps = PLANE["dp_steps"]
+        batches = [h.data(batch, seed=seed + 2 + r) for r in range(2)]
+
+        def dp_run(label, cname, ef, track):
+            groups = [CollectiveGroup(hub.hostport, tag=f"{PLANE_TAG}_{label}",
+                                      codec=cname, ef=ef, op_timeout_s=300.0,
+                                      ttl_s=FLEET_TTL_S)
+                      for _ in range(2)]
+            try:
+                _threads(2, lambda r: groups[r].sync(expect=2, timeout_s=60))
+                groups.sort(key=lambda g: g.rank)
+                ds = [CollectiveStepDriver(
+                    g, LayeredMLP(sizes, seed=seed, device=dev), lr=LR,
+                    momentum=BETA, track=track) for g in groups]
+                for d in ds:
+                    d.prime(init)
+                # The spans each member's on_chunk finalizes per
+                # allreduce, from the schedule: every non-empty ring
+                # chunk, or the whole tensor once on the tree path.
+                plan = {k: ([(0, (0, init[k].size))]
+                            if 4 * init[k].size <= groups[0].tree_max_bytes
+                            else [(i, sp) for i, sp in enumerate(
+                                ring_sched.chunk_spans(init[k].size, 2))
+                                if sp[1]])
+                        for k in names}
+                planned = sum(len(v) for v in plan.values())
+                barrier = threading.Barrier(2, timeout=600)
+                agree, logs_ok = [], []
+
+                def member(r):
+                    out = []
+                    try:
+                        for _ in range(steps):
+                            torch.cuda.synchronize()
+                            t = time.monotonic()
+                            loss = ds[r].step(*batches[r])
+                            torch.cuda.synchronize()
+                            out.append((time.monotonic() - t, loss,
+                                        dict(ds[r].last_stats)))
+                            if track:
+                                logs_ok.append(all(
+                                    sorted(ds[r].last_chunk_log[k])
+                                    == plan[k] for k in names))
+                            barrier.wait()
+                            if r == 0:
+                                agree.append(all(torch.equal(
+                                    ds[0].params()[k], ds[1].params()[k])
+                                    for k in names))
+                            barrier.wait()
+                    except BaseException:
+                        barrier.abort()
+                        raise
+                    return out
+
+                # K1: one launch per layer per step per member, or
+                # tracked, one per planned chunk.
+                out, got = _counted(
+                    f"collective driver, {label}, 2 members x {steps} "
+                    "steps", lambda: _threads(2, member),
+                    {"brpc_fused_momentum": 2 * steps * (
+                        planned if track else len(names))})
+                if agree != [True] * steps:
+                    fail(f"dp {label}: members' weights differ after a "
+                         f"step ({agree})")
+                if logs_ok != [True] * (2 * steps if track else 0):
+                    fail(f"dp {label}: on_chunk's spans != the ring's "
+                         f"schedule ({logs_ok})")
+                for r in range(2):
+                    for i, (dt, loss, st) in enumerate(out[r]):
+                        log(f"  member {r}" + _step_line(i + 1, dt, loss, st)
+                            + f" ({smi})")
+                if track:
+                    log(f"  {2 * steps * planned} chunks landed and were "
+                        f"applied one K1 launch each ({planned} a member a "
+                        "step, the ring schedule's; every step's chunk log "
+                        "== that plan)")
+                return ({k: v.clone() for k, v in ds[0].params().items()},
+                        {k: v.clone() for k, v in ds[0].momenta().items()},
+                        got)
+            finally:
+                _threads(2, lambda r: groups[r].close())
+
+        p_raw, m_raw, launches["dp_driver_raw"] = dp_run("raw", None, True,
+                                                         False)
+        p = {k: torch.from_numpy(init[k]).to(dev) for k in names}
+        m = {k: torch.zeros_like(v) for k, v in p.items()}
+        for _ in range(steps):
+            g0, _l0 = h.grads(p, *batches[0])
+            g1, _l1 = h.grads(p, *batches[1])
+            for k in names:
+                red = g0[k].cpu().numpy() + g1[k].cpu().numpy()
+                red /= np.float32(2)
+                p[k], m[k] = fu.momentum_update_reference(
+                    p[k], m[k], torch.from_numpy(red).to(dev), lr=LR,
+                    beta=BETA)
+        _equal_state("dp raw params", p_raw, p)
+        _equal_state("dp raw momenta", m_raw, m)
+        log("  raw == the replay averaging both members' gradients (a + b"
+            ", / 2) and applying the plain update (bit for bit); members "
+            "equal after every step")
+        del p, m, g0, g1
+        p_ef, m_ef, launches["dp_driver_int8_ef"] = dp_run(
+            "int8_ef", "int8", True, False)
+        p_nv, m_nv, launches["dp_driver_int8_naive"] = dp_run(
+            "int8_naive", "int8", False, False)
+
+        def max_diff(a, b):
+            return max((a[k] - b[k]).abs().max().item() for k in names)
+
+        # The weights move by lr x momentum, ~1e-10 at this depth, under
+        # one ulp of a weight (~4e-9): what quantization dropped shows in
+        # the momenta, the optimizer state that sums the gradients.
+        d_ef, d_nv = max_diff(m_ef, m_raw), max_diff(m_nv, m_raw)
+        log(f"  int8 vs raw, max |diff| of the momenta: error feedback "
+            f"{d_ef:.3e}, naive requantizer {d_nv:.3e}; of the weights: "
+            f"{max_diff(p_ef, p_raw):.3e} and {max_diff(p_nv, p_raw):.3e}")
+        if not 0.0 < d_ef < d_nv:
+            fail(f"int8 with error feedback ({d_ef}) not closer to raw than "
+                 f"the naive requantizer ({d_nv})")
+        del p_ef, p_nv, m_ef, m_nv
+        p_tr, m_tr, launches["dp_driver_tracked"] = dp_run("tracked", None,
+                                                           True, True)
+        _equal_state("dp tracked params", p_tr, p_raw)
+        _equal_state("dp tracked momenta", m_tr, m_raw)
+        log("  track=True == the untracked raw run (bit for bit)")
+        del p_tr, m_tr, p_raw, m_raw, batches
+        gc.collect()
+
+        # -- 3. the 1F1B pipeline over WirePipe, 2 stages
+        steps, mbs = PLANE["pp_steps"], PLANE["microbatches"]
+        pipes = [WirePipe(hub.hostport, s, 2, tag=f"{PLANE_TAG}_pp",
+                          arena_bytes=128 << 20,
+                          client_arena_bytes=128 << 20, timeout_s=300.0,
+                          ttl_s=FLEET_TTL_S, device=dev) for s in range(2)]
+        try:
+            _threads(2, lambda s: pipes[s].sync(timeout_s=60))
+            drivers = [PipelineStageDriver(
+                s, 2, StagedMLP(sizes, s, 2, params=init, device=dev),
+                pipes[s], microbatches=mbs, lr=LR, momentum=BETA)
+                for s in range(2)]
+
+            def stage(s):
+                out = []
+                for _ in range(steps):
+                    t = time.monotonic()
+                    loss = drivers[s].step(x=x if s == 0 else None,
+                                           y=y if s == 1 else None)
+                    torch.cuda.synchronize()
+                    out.append((time.monotonic() - t, loss,
+                                dict(drivers[s].last_stats)))
+                return out
+
+            out, launches["pipeline"] = _counted(
+                f"1F1B pipeline over WirePipe, 2 stages x {mbs} "
+                f"microbatches, {steps} steps", lambda: _threads(2, stage),
+                {"brpc_fused_momentum": len(names) * steps})
+        finally:
+            for pp in pipes:
+                pp.close()
+        for s in range(2):
+            for i, (dt, _loss, st) in enumerate(out[s]):
+                log(f"  stage {s} step {i + 1}: {dt * 1e3:.1f} ms wall, "
+                    f"bubble {st['bubble_s'] * 1e3:.1f} ms "
+                    f"({st['bubble_s'] / st['wall_s']:.3f} of the stage's "
+                    f"wall; closed form bubble_fraction(2, {mbs}) = "
+                    f"{bubble_fraction(2, mbs):.3f}) ({smi})")
+        pp_losses = [loss for _dt, loss, _st in out[1]]
+        if not np.allclose(pp_losses, ref_losses[:steps], rtol=2e-5,
+                           atol=0.0):
+            fail(f"pipeline losses {pp_losses} vs replay "
+                 f"{ref_losses[:steps]} outside rtol 2e-5")
+        merged, moms = {}, {}
+        for d in drivers:
+            merged.update(d.harness.params())
+            moms.update(d.momenta())
+        worst = _close_state("pipeline weights", merged,
+                             ref_states[steps - 1][0])
+        log(f"  pipeline == the full-batch replay within rtol 2e-5 (losses) "
+            f"and rtol 2e-5, atol 1e-6 (weights; worst ratio {worst:.3e}: "
+            "they move under one ulp a step at this depth)")
+
+        # The plain per-microbatch replay: LayeredMLP.grads on each
+        # microbatch in order, the sum scaled by 1/M, the plain update —
+        # the pipeline's arithmetic without its schedule, stages or wire,
+        # so the pipeline must equal it bit for bit, weights and momenta.
+        def mb_replay(drop_last=False):
+            xs, ys = x.chunk(mbs), y.chunk(mbs)
+            used = mbs - 1 if drop_last else mbs
+            p = {k: torch.from_numpy(init[k]).to(dev) for k in names}
+            m = {k: torch.zeros_like(v) for k, v in p.items()}
+            losses, states = [], []
+            for _ in range(steps):
+                gsum, lsum = {}, 0.0
+                for i in range(used):
+                    gs, loss = h.grads(p, xs[i].contiguous(),
+                                       ys[i].contiguous())
+                    lsum += loss
+                    for k in names:
+                        gsum[k] = gsum[k] + gs[k] if k in gsum else gs[k]
+                for k in names:
+                    p[k], m[k] = fu.momentum_update_reference(
+                        p[k], m[k], gsum[k] * (1.0 / mbs), lr=LR,
+                        beta=BETA)
+                losses.append(lsum / mbs)
+                states.append((dict(p), dict(m)))
+            return losses, states
+
+        mb_losses, mb_states = mb_replay()
+        if pp_losses != mb_losses:
+            fail(f"pipeline losses {pp_losses} != the per-microbatch "
+                 f"replay's {mb_losses}")
+        _equal_state("pipeline params", merged, mb_states[-1][0])
+        _equal_state("pipeline momenta", moms, mb_states[-1][1])
+        # What a faulty pipeline would hold must differ from the replay
+        # on every tensor, so the check above can fail on each: no
+        # update (or zero activation grads into stage 0), one step
+        # fewer, the last microbatch dropped from every step.
+        faults = {"zero momenta": {k: torch.zeros_like(v)
+                                   for k, v in moms.items()},
+                  "a dropped microbatch": mb_replay(True)[1][-1][1]}
+        if steps > 1:
+            faults["one step fewer"] = mb_states[-2][1]
+        for what, state in faults.items():
+            same = [k for k in names
+                    if torch.equal(state[k], mb_states[-1][1][k])]
+            if same:
+                fail(f"pipeline momenta: {what} would pass on {same}")
+        # Against the full-batch replay the momenta differ by how cuBLAS
+        # orders one 8192-row GEMM against four 2048-row ones; a ReLU
+        # whose input sits within that rounding of 0 flips its mask.
+        w0 = torch.from_numpy(init[names[0]]).to(dev)
+        z_full = torch.matmul(x, w0)
+        z_mb = torch.cat([torch.matmul(c.contiguous(), w0)
+                          for c in x.chunk(mbs)])
+        d_worst, d_over, d_rel = _drift(moms, ref_states[steps - 1][1])
+        log(f"  pipeline == the per-microbatch replay (bit for bit: losses, "
+            f"weights, momenta; zero momenta, one step fewer and a dropped "
+            f"microbatch each differ from it on every tensor); momenta vs "
+            f"the full-batch replay: worst |err| / (1e-3 RMS + 2e-5 |m|) "
+            f"{d_worst:.3e}, {d_over} elements past 1, worst "
+            f"||err|| / ||m|| {d_rel:.3e}; the first layer's z, {batch} "
+            f"rows at once vs {mbs} x {batch // mbs}: max |diff| "
+            f"{(z_full - z_mb).abs().max().item():.3e}, "
+            f"{int(((z_full > 0) != (z_mb > 0)).sum().item())} mask flips")
+        del drivers, merged, moms, faults, mb_states, ref_states
+        del w0, z_full, z_mb
+        gc.collect()
+
+        # -- 4. tensor parallelism, 2 members, depth cut to 2 blocks
+        steps, tsizes = PLANE["tp_steps"], PLANE["tp_sizes"]
+        ht = LayeredMLP(tsizes, seed=seed, device=dev)
+        tinit = {k: v.cpu().numpy() for k, v in ht.init_params().items()}
+        ring = LocalRing(2)
+
+        def tp_member(r):
+            tp = TPShardedMLP(tsizes, ring.member(r), tinit, lr=LR,
+                              momentum=BETA, device=dev)
+            out = []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t = time.monotonic()
+                loss = tp.train_step(x, y)
+                torch.cuda.synchronize()
+                out.append((time.monotonic() - t, loss))
+            return out, tp.gather_params()
+
+        res, launches["tensor_parallel"] = _counted(
+            f"tensor parallel, 2 members, {tsizes}, {steps} steps",
+            lambda: _threads(2, tp_member),
+            {"brpc_fused_momentum": 2 * (len(tsizes) - 1) * steps})
+        (out0, g0), (out1, g1) = res
+        for i, (dt, loss) in enumerate(out0):
+            log(f"  step {i + 1}: {dt * 1e3:.1f} ms wall, loss {loss:.6f} "
+                f"({smi})")
+        tp_losses = [l for _d, l in out0]
+        if tp_losses != [l for _d, l in out1]:
+            fail("tensor parallel: the members' losses differ")
+        if not tp_losses[-1] < tp_losses[0]:
+            fail(f"tensor parallel: the loss did not fall ({tp_losses})")
+        _equal_state("tp members' gathered weights", g1, g0)
+        p = {k: torch.from_numpy(v).to(dev) for k, v in tinit.items()}
+        m = {k: torch.zeros_like(v) for k, v in p.items()}
+        t_losses = []
+        for _ in range(steps):
+            gs, loss = ht.grads(p, x, y)
+            t_losses.append(loss)
+            for k in p:
+                p[k], m[k] = fu.momentum_update_reference(
+                    p[k], m[k], gs[k], lr=LR, beta=BETA)
+        if not np.allclose(tp_losses, t_losses, rtol=2e-5, atol=0.0):
+            fail(f"tensor parallel losses {tp_losses} vs replay "
+                 f"{t_losses} outside rtol 2e-5")
+        worst = _close_state("tensor parallel weights", g0, p)
+        log(f"  tensor parallel == the full-batch replay within rtol 2e-5, "
+            f"atol 1e-6 (worst ratio {worst:.3f}); members bit-identical")
+        return launches
+    finally:
+        sys.setswitchinterval(switch)
+        if hub is not None:
+            clear_registry()
+            hub.stop()
+
+
 def _wait_for(cond, timeout_s: float, what: str) -> None:
     deadline = time.monotonic() + timeout_s
     while not cond():
@@ -1307,6 +1875,9 @@ def main() -> int:
     t0 = time.monotonic()
     by_path["fleet"] = fleet_path(args.seed, smi)
     log(f"== phase 5 (parameter-server fleet) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    by_path.update(training_plane(args.seed, smi))
+    log(f"== phase 6 (training plane) {time.monotonic() - t0:.1f} s")
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()
                                  if c.get(r["name"])}

@@ -386,3 +386,112 @@ def test_ring_attention_over_nccl_matches_one_card(cuda):
     got = torch.from_numpy(np.concatenate([o for o, _ in results], axis=2))
     ref = fa.flash_attention(*_ring_inputs(), causal=True).float().cpu()
     assert ((got - ref).abs() <= 4e-3 + 2.0 ** -8 * ref.abs()).all()
+
+
+# ---------------------------------------------------------------------------
+# The training plane on the card.
+# ---------------------------------------------------------------------------
+
+_DP_SIZES = [64, 256, 256, 64]
+
+
+def _threads(n, fn):
+    import threading
+
+    out, errs = {}, []
+
+    def worker(r):
+        try:
+            out[r] = fn(r)
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            errs.append(e)
+
+    ts = [threading.Thread(target=worker, args=(r,)) for r in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    assert not errs, errs
+    return [out[r] for r in range(n)]
+
+
+def _dp_run(cuda, track, steps=2):
+    from brpc_tpu_torch.models.tensor_service import LayeredMLP
+    from brpc_tpu_torch.models.tp_layers import LocalRing
+    from brpc_tpu_torch.runtime.step_driver import CollectiveStepDriver
+
+    ring = LocalRing(2)
+    ds = [CollectiveStepDriver(ring.member(r),
+                               LayeredMLP(_DP_SIZES, device=cuda),
+                               track=track) for r in range(2)]
+    for d in ds:
+        d.prime()
+    data = [ds[0].harness.data(16, seed=40 + r) for r in range(2)]
+    k1 = fu.LAUNCHES.value
+    _threads(2, lambda r: [ds[r].step(*data[r]) for _ in range(steps)])
+    torch.cuda.synchronize()
+    return ds, fu.LAUNCHES.value - k1
+
+
+def test_collective_driver_launches_k1_per_layer_per_step(cuda):
+    ds, launches = _dp_run(cuda, track=False)
+    layers = len(_DP_SIZES) - 1
+    assert launches == 2 * 2 * layers  # 2 members x 2 steps x layers
+    for n, p in ds[0].params().items():
+        assert p.device.type == "cuda"
+        assert torch.equal(p, ds[1].params()[n])
+
+
+def test_tracked_collective_step_equals_untracked_on_the_card(cuda):
+    plain, _ = _dp_run(cuda, track=False)
+    from brpc_tpu_torch.collectives.ring import chunk_spans
+
+    tracked, launches = _dp_run(cuda, track=True)
+    # The spans a LocalRing member finalizes per allreduce: every
+    # non-empty chunk of the ring schedule.
+    plan = {n: [(i, sp) for i, sp in enumerate(chunk_spans(p.numel(), 2))
+                if sp[1]]
+            for n, p in plain[0].params().items()}
+    for d in tracked:
+        assert {n: sorted(v) for n, v in d.last_chunk_log.items()} == plan
+    # One K1 per landed chunk: 2 members x 2 steps x the plan.
+    assert launches == 2 * 2 * sum(len(v) for v in plan.values())
+    for n, p in plain[0].params().items():
+        assert torch.equal(tracked[0].params()[n], p), n
+        assert torch.equal(tracked[0].momenta()[n], plain[0].momenta()[n])
+
+
+def test_overlapped_driver_hides_wire_time_on_the_card(cuda):
+    """3 layers over a server on the card: the wire lane copies each
+    finished gradient on its own stream, so wire time runs in the
+    compute lane's shadow; overlapped == serial bit for bit."""
+    from brpc_tpu_torch.models.tensor_service import LayeredMLP
+    from brpc_tpu_torch.runtime.param_server import (ParameterClient,
+                                                     ParameterServer)
+    from brpc_tpu_torch.runtime.step_driver import OverlappedStepDriver
+
+    sizes = [512, 2048, 2048, 512]
+    h = LayeredMLP(sizes, device=cuda)
+    x, y = h.data(4096)
+    init = {k: v.cpu().numpy() for k, v in h.init_params().items()}
+    results = []
+    for overlap in (True, False):
+        ps = ParameterServer(init, device=cuda)
+        cl = ParameterClient(f"tpu://127.0.0.1:{ps.start()}", device=cuda)
+        try:
+            d = OverlappedStepDriver(cl, h, overlap=overlap)
+            d.prime()
+            k1 = fu.LAUNCHES.value
+            losses = [d.step(x, y) for _ in range(3)]
+            torch.cuda.synchronize()
+            assert fu.LAUNCHES.value - k1 == 3 * 3
+            results.append((losses, ps.state(), d.totals))
+        finally:
+            cl.close()
+            ps.stop()
+    (lo, so, to), (ls, ss, ts_) = results
+    assert lo == ls
+    for k in so.params:
+        assert torch.equal(so.params[k], ss.params[k])
+    assert to["overlapped_comm_ms"] > 0.0
+    assert ts_["overlapped_comm_ms"] == 0.0
