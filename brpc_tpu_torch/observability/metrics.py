@@ -54,6 +54,64 @@ class LatencyRecorder:
     def record_s(self, seconds: float) -> None:
         self.record_us(int(seconds * 1e6))
 
+    def _v(self, what: int) -> int:
+        return self._L.tbrpc_var_latency_value(self._h, what)
+
+    def count(self) -> int:
+        return self._v(0)
+
+    def qps(self) -> int:
+        return self._v(1)
+
+    def avg_us(self) -> int:
+        return self._v(2)
+
+    def max_us(self) -> int:
+        return self._v(3)
+
+    def p50(self) -> int:
+        return self._v(50)
+
+    def p90(self) -> int:
+        return self._v(90)
+
+    def p99(self) -> int:
+        return self._v(99)
+
+    def p999(self) -> int:
+        return self._v(999)
+
+    def snapshot(self) -> Dict[str, int]:
+        """The recorded percentiles (us), for a result row."""
+        return {"count": self.count(), "avg_us": self.avg_us(),
+                "p50_us": self.p50(), "p99_us": self.p99(),
+                "max_us": self.max_us()}
+
+
+class NullSeries:
+    """A series that records nothing and reads 0, with the write and read
+    surface of a Counter and a LatencyRecorder: for code that keeps its
+    recorders in a dict but must run without registering native series
+    (a metric-free harness)."""
+
+    def record_s(self, *_a) -> None: ...
+
+    def record_us(self, *_a) -> None: ...
+
+    def add(self, *_a) -> None: ...
+
+    def count(self) -> int:
+        return 0
+
+    def p99(self) -> int:
+        return 0
+
+    def qps(self) -> int:
+        return 0
+
+    def value(self) -> int:
+        return 0
+
 
 class PassiveGauge:
     """A native PassiveStatus<int64> whose value is ``fn()`` at scrape

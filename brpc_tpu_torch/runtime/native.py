@@ -1,8 +1,11 @@
 """ctypes bindings over the native C API (native/capi/capi.h).
 
-The port's own copy of the binding the parameter-server path uses: the
-native ``Server``/``Channel`` objects, ``RpcError`` and the transport error
-codes, the ambient QoS scope, and ``lib()``, which loads — building on
+The port's own copy of the binding its planes use: the native
+``Server``/``Channel`` objects (byte services, the echo service, admission
+settings), ``RpcError`` and the transport error codes, the ambient QoS
+scope and the request deadline, the credit-windowed ``Stream`` the serving
+plane's token streams ride, the ``/sessionz`` provider slot, the HTTP
+progressive-response fallback, and ``lib()``, which loads — building on
 demand — a ``libbrpc_tpu.so`` that links libstdc++ dynamically, as torch
 needs. Handlers run on the native side's dedicated callback pthreads, never
 on a fiber (ctypes pairs its GIL state on one OS thread).
@@ -36,6 +39,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import ctypes
+import errno
 import glob
 import os
 import re
@@ -44,7 +48,7 @@ import subprocess
 import threading
 import weakref
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 from brpc_tpu_torch.utils.build import (file_lock, read_stamp, source_digest,
                                         write_stamp)
@@ -72,7 +76,22 @@ TRPC_ECONNECT = 2007        # connect failed
 # The connection-killed subset (the client's QoS self-heal keys on it).
 TRANSPORT_DEAD = (TRPC_EEOF, TRPC_EFAILEDSOCKET, TRPC_ECONNECT)
 
+# The serving plane's structural code: the session now lives on another
+# server, whose address the text carries as "moved:<addr>" (2040-2046 are
+# the tensor plane's, 2047 the serving fleet's drain refusal).
+E_SESSION_MOVED = 2048
+
 _RETRY_AFTER_RE = re.compile(r"retry_after_ms=(\d+)")
+_MOVED_RE = re.compile(r"moved:([^\s;,]+)")
+
+
+def parse_moved(text: str) -> Optional[str]:
+    """The address in a "moved:<addr>" forwarding text (an error text, an
+    E-frame, a shed reason), or None."""
+    if not text:
+        return None
+    m = _MOVED_RE.search(text)
+    return m.group(1) if m else None
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -89,6 +108,35 @@ _CXXFLAGS = ["-std=c++20", "-O2", "-fPIC", "-fno-omit-frame-pointer",
 
 # PassiveStatus gauge callback: ctx -> current int64 value.
 _GAUGE_CB = ctypes.CFUNCTYPE(ctypes.c_int64, ctypes.c_void_p)
+
+# Byte-service handler: ctx, method, request, attachment, the response's
+# two out-buffers, the error code and the C-owned error-text buffer.
+_HANDLER_CB = ctypes.CFUNCTYPE(
+    None,
+    ctypes.c_void_p,                    # ctx
+    ctypes.c_char_p,                    # method
+    ctypes.c_void_p, ctypes.c_size_t,   # req
+    ctypes.c_void_p, ctypes.c_size_t,   # attach
+    ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t),  # resp
+    ctypes.POINTER(ctypes.c_void_p),    # resp_attach
+    ctypes.POINTER(ctypes.c_size_t),    # resp_attach length
+    ctypes.POINTER(ctypes.c_int),       # error_code
+    ctypes.c_void_p, ctypes.c_size_t,   # err_text buffer (C-owned)
+)
+
+# /sessionz provider: fill the JSON document into (buf, cap), returning
+# its full length; runs on a callback-pool pthread at scrape time.
+_SESSIONZ_CB = ctypes.CFUNCTYPE(
+    ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t)
+
+# HTTP streaming handler: (ctx, path, query, progressive_id, body*,
+# body_len*, use_progressive*, status*); use_progressive=1 keeps the
+# response open as a chunked body fed by tbrpc_progressive_write.
+_HTTP_STREAM_CB = ctypes.CFUNCTYPE(
+    None, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p,
+    ctypes.c_uint64, ctypes.POINTER(ctypes.c_void_p),
+    ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_int),
+    ctypes.POINTER(ctypes.c_int))
 
 
 def fill_err_text(err_text: int, err_text_cap: int, message: str) -> None:
@@ -310,6 +358,8 @@ def _load() -> ctypes.CDLL:
     L.tbrpc_var_latency_create.restype = ctypes.c_void_p
     L.tbrpc_var_latency_create.argtypes = [ctypes.c_char_p]
     L.tbrpc_var_latency_record.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    L.tbrpc_var_latency_value.restype = ctypes.c_int64
+    L.tbrpc_var_latency_value.argtypes = [ctypes.c_void_p, ctypes.c_int]
     L.tbrpc_var_gauge_create.restype = ctypes.c_void_p
     L.tbrpc_var_gauge_create.argtypes = [
         ctypes.c_char_p, _GAUGE_CB, ctypes.c_void_p]
@@ -363,6 +413,51 @@ def _load() -> ctypes.CDLL:
     L.tbrpc_qos_get.restype = ctypes.c_int64
     L.tbrpc_qos_get.argtypes = [
         ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_size_t]
+    L.tbrpc_deadline_remaining_ms.restype = ctypes.c_int64
+    L.tbrpc_deadline_remaining_ms.argtypes = []
+    # Byte services and admission settings of a server.
+    L.tbrpc_server_add_callback_service.restype = ctypes.c_int
+    L.tbrpc_server_add_callback_service.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, _HANDLER_CB, ctypes.c_void_p]
+    L.tbrpc_server_add_echo_service.restype = ctypes.c_int
+    L.tbrpc_server_add_echo_service.argtypes = [ctypes.c_void_p]
+    L.tbrpc_server_set_inline.restype = ctypes.c_int
+    L.tbrpc_server_set_inline.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+    L.tbrpc_server_set_max_concurrency.restype = ctypes.c_int
+    L.tbrpc_server_set_max_concurrency.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32]
+    L.tbrpc_server_set_tenant_quota.restype = ctypes.c_int
+    L.tbrpc_server_set_tenant_quota.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32]
+    # Streaming RPC: credit-windowed message streams, tcp and tpu://.
+    L.tbrpc_stream_accept.restype = ctypes.c_int64
+    L.tbrpc_stream_accept.argtypes = [ctypes.c_int64]
+    L.tbrpc_stream_create.restype = ctypes.c_int64
+    L.tbrpc_stream_create.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p, ctypes.c_size_t,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p, ctypes.c_size_t]
+    L.tbrpc_stream_write.restype = ctypes.c_int
+    L.tbrpc_stream_write.argtypes = [
+        ctypes.c_uint64, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int64]
+    L.tbrpc_stream_read.restype = ctypes.c_int
+    L.tbrpc_stream_read.argtypes = [
+        ctypes.c_uint64, ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_size_t)]
+    L.tbrpc_stream_close.restype = ctypes.c_int
+    L.tbrpc_stream_close.argtypes = [ctypes.c_uint64, ctypes.c_int]
+    # /sessionz and the HTTP streaming fallback.
+    L.tbrpc_sessionz_set_provider.restype = ctypes.c_int
+    L.tbrpc_sessionz_set_provider.argtypes = [_SESSIONZ_CB, ctypes.c_void_p]
+    L.tbrpc_http_stream_register.restype = ctypes.c_int
+    L.tbrpc_http_stream_register.argtypes = [
+        ctypes.c_char_p, _HTTP_STREAM_CB, ctypes.c_void_p]
+    L.tbrpc_progressive_write.restype = ctypes.c_int
+    L.tbrpc_progressive_write.argtypes = [
+        ctypes.c_uint64, ctypes.c_void_p, ctypes.c_size_t]
+    L.tbrpc_progressive_close.restype = ctypes.c_int
+    L.tbrpc_progressive_close.argtypes = [ctypes.c_uint64]
     atexit.register(_teardown_native_handles)
     return L
 
@@ -384,6 +479,14 @@ def qos(priority: int = PRIORITY_NORMAL, tenant: str = ""):
         yield
     finally:
         L.tbrpc_qos_set(prev_prio.value, prev_tenant.value)
+
+
+def deadline_remaining_ms() -> Optional[int]:
+    """Remaining budget (ms) of the request this thread is handling: the
+    client's propagated deadline less the time already spent. None when
+    no deadline is in scope; 0 means expired."""
+    left = lib().tbrpc_deadline_remaining_ms()
+    return None if left < 0 else int(left)
 
 
 def dump_ici() -> str:
@@ -416,6 +519,11 @@ class RpcError(Exception):
         return self.code in (TRPC_ELIMIT, TRPC_EOVERCROWDED)
 
 
+# Byte-service handler: (method, request, attachment) -> (response,
+# response attachment); raise RpcError to fail the call.
+Handler = Callable[[str, bytes, bytes], Tuple[bytes, bytes]]
+
+
 class Server:
     """A native RPC server hosting Python services."""
 
@@ -425,6 +533,70 @@ class Server:
         self._cbs = []  # keep CFUNCTYPE objects alive
         self.port: Optional[int] = None
         _LIVE_SERVERS.add(self)
+
+    def add_echo_service(self) -> None:
+        """The native ``EchoService/Echo`` (answers the request bytes)."""
+        if self._L.tbrpc_server_add_echo_service(self._h) != 0:
+            raise RuntimeError("add_echo_service failed")
+
+    def set_inline(self, service: str, enabled: bool = True) -> None:
+        """Run small requests to a native, non-blocking ``service`` on the
+        input fiber. Python handler services are always refused: they park
+        on the callback pool, which would block the connection."""
+        if self._L.tbrpc_server_set_inline(
+                self._h, service.encode(), 1 if enabled else 0) != 0:
+            raise RuntimeError(
+                f"set_inline({service!r}) refused: unknown service or not "
+                "inline-safe (Python handlers always run on the callback "
+                "pool)")
+
+    def set_max_concurrency(self, max_inflight: int) -> None:
+        """The concurrency gate applied at ``start()`` (0 = unlimited);
+        requests over it shed with ELIMIT and a retry hint. Call before
+        ``start()``."""
+        if self._L.tbrpc_server_set_max_concurrency(
+                self._h, max_inflight) != 0:
+            raise RuntimeError(
+                "set_max_concurrency must be called before start()")
+
+    def set_tenant_quota(self, max_inflight: int) -> None:
+        """Per-tenant in-flight quota under the global gate (0 = off)."""
+        if self._L.tbrpc_server_set_tenant_quota(self._h, max_inflight) != 0:
+            raise RuntimeError("set_tenant_quota failed")
+
+    def add_service(self, name: str, handler: Handler) -> None:
+        """Host a byte service: ``handler(method, request, attachment)``
+        runs on a callback-pool thread for every ``name/<method>`` call."""
+        L = self._L
+
+        def trampoline(ctx, method, req, req_len, att, att_len,
+                       resp, resp_len, resp_att, resp_att_len, error_code,
+                       err_text, err_text_cap):
+            try:
+                request = ctypes.string_at(req, req_len) if req_len else b""
+                attachment = (ctypes.string_at(att, att_len) if att_len
+                              else b"")
+                r, ra = handler(method.decode(), request, attachment)
+                for data, pp, pl in ((r, resp, resp_len),
+                                     (ra, resp_att, resp_att_len)):
+                    if data:
+                        buf = L.tbrpc_alloc(len(data))
+                        ctypes.memmove(buf, data, len(data))
+                        pp[0] = buf
+                        pl[0] = len(data)
+            except RpcError as e:
+                error_code[0] = e.code if e.code != 0 else TRPC_EINTERNAL
+                fill_err_text(err_text, err_text_cap, e.text)
+            except Exception as e:  # noqa: BLE001 — handler bug => EINTERNAL
+                error_code[0] = TRPC_EINTERNAL
+                fill_err_text(err_text, err_text_cap,
+                              f"{type(e).__name__}: {e}")
+
+        cb = _HANDLER_CB(trampoline)
+        self._cbs.append(cb)
+        if L.tbrpc_server_add_callback_service(
+                self._h, name.encode(), cb, None) != 0:
+            raise RuntimeError(f"add_service({name}) failed")
 
     def start(self, addr: str = "127.0.0.1:0") -> int:
         if not self._h:
@@ -501,3 +673,208 @@ class Channel:
             self.close()
         except Exception:  # noqa: BLE001
             pass
+
+
+# ---------------------------------------------------------------------------
+# Streaming RPC: the serving plane's transport.
+# ---------------------------------------------------------------------------
+
+class StreamClosed(Exception):
+    """The peer closed the stream. ``error`` is the close code: 0 for a
+    clean close, else the code an abnormal close (a shed) carried."""
+
+    def __init__(self, error: int = 0):
+        super().__init__("stream closed"
+                         + (f" (error {error})" if error else ""))
+        self.error = error
+
+
+class Stream:
+    """One half of a native credit-windowed message stream, on tcp or
+    tpu://: ordered messages with per-stream flow control. A read or write
+    blocks only the calling thread (ctypes releases the GIL), and a slow
+    reader exhausts only its own peer's window. From :func:`open_stream`
+    (client) or :func:`accept_stream` (inside a handler); :meth:`close`
+    releases the native read buffer."""
+
+    def __init__(self, stream_id: int):
+        self._L = lib()
+        self.id = int(stream_id)
+        self._closed = False
+
+    def write(self, data: bytes, timeout_ms: int = -1) -> bool:
+        """Send one message: ``timeout_ms`` < 0 waits for credit, 0 probes,
+        > 0 bounds the wait. False when the window stayed exhausted;
+        raises StreamClosed once the stream is gone."""
+        rc = self._L.tbrpc_stream_write(self.id, data, len(data),
+                                        timeout_ms)
+        if rc == 0:
+            return True
+        if rc == errno.EAGAIN:
+            return False
+        raise StreamClosed(rc)
+
+    def read(self, timeout_ms: int = -1) -> Optional[bytes]:
+        """The next message, or None on timeout. Raises StreamClosed at
+        the end of the stream, after every queued message was read."""
+        L = self._L
+        data = ctypes.c_void_p()
+        length = ctypes.c_size_t()
+        rc = L.tbrpc_stream_read(self.id, timeout_ms, ctypes.byref(data),
+                                 ctypes.byref(length))
+        if rc == 0:
+            try:
+                return (ctypes.string_at(data, length.value)
+                        if length.value else b"")
+            finally:
+                L.tbrpc_free(data)
+        if rc == -1:
+            return None
+        if rc in (1, -2):
+            raise StreamClosed(0)
+        raise StreamClosed(rc)
+
+    def close(self, error: int = 0) -> None:
+        """Close this half. ``error`` > 0 rides the CLOSE frame outside the
+        credit window, so the peer's reads end in StreamClosed(error) even
+        when its window is full. Idempotent."""
+        if not self._closed:
+            self._closed = True
+            self._L.tbrpc_stream_close(self.id, error)
+
+    def __enter__(self) -> "Stream":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+
+def open_stream(channel: Channel, service_method: str,
+                request: bytes = b"", *,
+                max_buf_size: int = 0) -> Tuple[Stream, bytes]:
+    """Call ``service_method`` with a stream attached (the handler must
+    :func:`accept_stream`). Returns the connected stream and the response
+    body. ``max_buf_size`` (<= 0: the native default) is this side's
+    receive window, the peer's write budget."""
+    if not channel._h:
+        raise RuntimeError("channel is closed")
+    L = lib()
+    resp = ctypes.c_void_p()
+    resp_len = ctypes.c_size_t()
+    errbuf = ctypes.create_string_buffer(256)
+    sid = L.tbrpc_stream_create(
+        channel._h, service_method.encode(), request, len(request),
+        max_buf_size, ctypes.byref(resp), ctypes.byref(resp_len),
+        errbuf, len(errbuf))
+    if sid <= 0:
+        raise RpcError(int(-sid) if sid < 0 else TRPC_EINTERNAL,
+                       errbuf.value.decode(errors="replace"))
+    try:
+        body = (ctypes.string_at(resp, resp_len.value)
+                if resp_len.value else b"")
+    finally:
+        L.tbrpc_free(resp)
+    return Stream(sid), body
+
+
+def accept_stream(max_buf_size: int = 0) -> Optional[Stream]:
+    """Accept the caller's stream from inside a service handler, before
+    it returns. None when the call carried no stream."""
+    sid = lib().tbrpc_stream_accept(max_buf_size)
+    return Stream(sid) if sid > 0 else None
+
+
+# Trampolines in process-lifetime native slots (HTTP handlers) must never
+# be collected.
+_immortal_native_cbs: list = []
+
+# The /sessionz slot holds one provider. The native side swaps and scrapes
+# under one mutex, so a replaced trampoline is never called again and is
+# released here.
+_sessionz_holder: dict = {"fn": None, "cb": None}
+
+
+def set_sessionz_provider(fn: Optional[Callable[[], str]]) -> None:
+    """Point the /sessionz console page at ``fn`` (returning the JSON
+    document); None clears it. The slot is one per process: the newest
+    registration serves."""
+    L = lib()
+    if fn is None:
+        L.tbrpc_sessionz_set_provider(ctypes.cast(None, _SESSIONZ_CB),
+                                      None)
+        _sessionz_holder["fn"] = _sessionz_holder["cb"] = None
+        return
+
+    def _cb(_ctx, buf, cap) -> int:
+        try:
+            doc = fn().encode()
+        except Exception:  # noqa: BLE001 — a failing provider reads empty
+            doc = b"{}"
+        if buf and cap > 0:
+            n = min(len(doc), cap - 1)
+            ctypes.memmove(buf, doc, n)
+            ctypes.memset(buf + n, 0, 1)
+        return len(doc)
+
+    cb = _SESSIONZ_CB(_cb)
+    L.tbrpc_sessionz_set_provider(cb, None)
+    _sessionz_holder["fn"] = fn
+    _sessionz_holder["cb"] = cb
+
+
+def clear_sessionz_provider(fn: Callable[[], str]) -> None:
+    """Clear the /sessionz provider if ``fn`` is still the registered
+    one (a shutdown never clears a newer manager's registration)."""
+    if _sessionz_holder["fn"] is fn:
+        set_sessionz_provider(None)
+
+
+# HTTP streaming handler: (path, query, progressive_id) -> (status, body,
+# progressive). progressive=True keeps the response open: feed it with
+# progressive_write(progressive_id, ...), end it with progressive_close.
+HttpStreamHandler = Callable[[str, str, int], Tuple[int, bytes, bool]]
+
+
+def register_http_stream_handler(path: str, fn: HttpStreamHandler) -> None:
+    """Serve ``path`` on every server's builtin HTTP port, optionally as a
+    chunked progressive response. A path registers once per process;
+    registering it again raises RuntimeError."""
+    L = lib()
+
+    def _cb(_ctx, cpath, cquery, pid, body, body_len, use_prog, status):
+        try:
+            st, payload, progressive = fn(
+                cpath.decode() if cpath else "",
+                cquery.decode() if cquery else "", int(pid))
+        except Exception as e:  # noqa: BLE001 — handler bug => 500
+            st, payload, progressive = (
+                500, f"{type(e).__name__}: {e}\n".encode(), False)
+        status[0] = int(st)
+        use_prog[0] = 1 if progressive else 0
+        if payload:
+            buf = L.tbrpc_alloc(len(payload))
+            ctypes.memmove(buf, payload, len(payload))
+            body[0] = buf
+            body_len[0] = len(payload)
+
+    cb = _HTTP_STREAM_CB(_cb)
+    _immortal_native_cbs.append(cb)
+    if L.tbrpc_http_stream_register(path.encode(), cb, None) != 0:
+        raise RuntimeError(f"http path already registered: {path!r}")
+
+
+def progressive_write(progressive_id: int, data: bytes) -> bool:
+    """Feed a progressive HTTP response; False once the peer is gone."""
+    return lib().tbrpc_progressive_write(
+        progressive_id, data, len(data)) == 0
+
+
+def progressive_close(progressive_id: int) -> None:
+    """Send the terminal chunk; the connection closes after it drains."""
+    lib().tbrpc_progressive_close(progressive_id)

@@ -257,18 +257,38 @@ class ParameterServer:
             _per_server_lag_gauge(name, self)
         _SERVERS.add(self)
         self._m = _server_metrics()
+        # The handlers' device work (H2D, K2, K1, D2H staging) runs on a
+        # stream of this server's own, never on the legacy default stream
+        # a trainer in the same process computes on: one stream for every
+        # handler, so a pull's D2H still queues after the update that made
+        # its version. It first waits for the copies that placed the
+        # initial state.
+        self._stream = None
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            for t in (*self._params.values(), *self._momenta.values()):
+                t.record_stream(self._stream)
         self.server = native.Server()
         self.arena = add_tensor_service(self.server, "ParamService",
-                                        self._handle, arena)
+                                        self._handle, arena,
+                                        device_ctx=self._device_ctx)
         self._oneside_window: Optional[OnesideWindow] = None
         self._oneside_codec = (oneside_codec
                                if oneside_codec in self._codecs else None)
         if oneside:
             self._oneside_window = OnesideWindow(self.arena)
-            for k in list(self._params):
-                with self._update_locks[k]:
-                    self._publish_oneside(k)
+            with self._device_ctx():
+                for k in list(self._params):
+                    with self._update_locks[k]:
+                        self._publish_oneside(k)
         self.port: Optional[int] = None
+
+    def _device_ctx(self):
+        """Enters this server's CUDA stream (nothing on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
 
     def start(self, addr: str = "127.0.0.1:0") -> int:
         self.port = self.server.start(addr)
@@ -279,10 +299,18 @@ class ParameterServer:
 
     def state(self) -> PSState:
         """A consistent snapshot of (params, momenta, versions). Tensors
-        are never updated in place, so the snapshot stays valid."""
+        are never updated in place, so the snapshot stays valid. On CUDA
+        the snapshot is complete on return (this waits for the server's
+        stream) and its tensors are marked in use by the caller's."""
         with self._mu:
-            return PSState(dict(self._params), dict(self._momenta),
+            snap = PSState(dict(self._params), dict(self._momenta),
                            dict(self._version))
+        if self._stream is not None:
+            self._stream.synchronize()
+            caller = torch.cuda.current_stream(self.device)
+            for t in (*snap.params.values(), *snap.momenta.values()):
+                t.record_stream(caller)
+        return snap
 
     def _missing_locked(self, name: str) -> "native.RpcError":
         """The answer for a name this server does not hold: E_MOVED with
@@ -715,8 +743,8 @@ class ParameterServer:
             with tracing.stage("fused_update"):
                 # Out of place: a Pull stages the tensor it was handed
                 # after dropping _mu, so tensors stay immutable once
-                # handed out. Launched on the current stream (the same on
-                # every handler thread): later pulls' D2H copies order
+                # handed out. Launched on the server's stream (the same
+                # on every handler thread): later pulls' D2H copies order
                 # after it without a sync here.
                 p2, m2 = fused_momentum_update(
                     p, m, grad.to(p.dtype), lr=self._lr,

@@ -9,7 +9,9 @@ seeded from the same numpy values therefore start from identical bits.
 
 ``psstate_from_numpy``/``psstate_to_numpy`` do the same for the flagship
 step's ``models.tensor_service.PSState`` (w1, b1, w2, b2, momenta, stats),
-and ``layered_params_from_numpy`` for ``LayeredMLP``'s parameter dict.
+``layered_params_from_numpy`` for ``LayeredMLP``'s parameter dict, and
+``decoder_params_from_numpy``/``decoder_params_to_numpy`` for the serving
+decoder's ``DecoderParams`` (embed, pos, wq, wk, wv, wo).
 
 The training plane's state, as numpy both ways: ``stage_params`` picks a
 pipeline stage's layers out of a full ``LayeredMLP`` set, ``tp_shards``
@@ -106,6 +108,28 @@ def psstate_to_numpy(state) -> Dict[str, np.ndarray]:
     """``tensor_service.PSState`` -> ``{field: host numpy array}``."""
     return {k: getattr(state, k).detach().cpu().numpy()
             for k in _PSSTATE_FIELDS}
+
+
+_DECODER_FIELDS = ("embed", "pos", "wq", "wk", "wv", "wo")
+
+
+def decoder_params_from_numpy(values, device=None):
+    """A mapping (or NamedTuple, such as the JAX package's
+    ``DecoderParams``) of arrays -> the port's ``DecoderParams`` on
+    ``device`` (default CUDA), each tensor its own copy."""
+    from brpc_tpu_torch.models.decoder import DecoderParams
+
+    if not isinstance(values, dict):
+        values = values._asdict()
+    dev = resolve_device(device)
+    return DecoderParams(**{k: to_tensor(values[k], dev)
+                            for k in _DECODER_FIELDS})
+
+
+def decoder_params_to_numpy(params) -> Dict[str, np.ndarray]:
+    """``DecoderParams`` -> ``{field: host numpy array}``."""
+    return {k: getattr(params, k).detach().cpu().numpy()
+            for k in _DECODER_FIELDS}
 
 
 def layered_params_from_numpy(params: Dict[str, object],

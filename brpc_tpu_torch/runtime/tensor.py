@@ -28,6 +28,7 @@ Device edges and their hazards:
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import struct
@@ -79,6 +80,11 @@ def _bind_tensor_api(L: ctypes.CDLL) -> ctypes.CDLL:
     L.tbrpc_arena_alloc.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
     L.tbrpc_arena_free.restype = ctypes.c_int
     L.tbrpc_arena_free.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+    L.tbrpc_arena_busy_bytes.restype = ctypes.c_int64
+    L.tbrpc_arena_busy_bytes.argtypes = [ctypes.c_void_p]
+    L.tbrpc_arena_wait_reusable.restype = ctypes.c_int
+    L.tbrpc_arena_wait_reusable.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int64]
     L.tbrpc_var_arena_gauges_create.argtypes = []
     L.tbrpc_call_tensor.restype = ctypes.c_int
     L.tbrpc_call_tensor.argtypes = [
@@ -117,6 +123,9 @@ def _bind_tensor_api(L: ctypes.CDLL) -> ctypes.CDLL:
     L.tbrpc_oneside_publish.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64,
         ctypes.c_uint64, ctypes.c_int]
+    L.tbrpc_oneside_begin_rewrite.restype = None
+    L.tbrpc_oneside_begin_rewrite.argtypes = [ctypes.c_void_p,
+                                              ctypes.c_char_p]
     L.tbrpc_oneside_unpublish.restype = ctypes.c_int
     L.tbrpc_oneside_unpublish.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
     L.tbrpc_oneside_window_describe.restype = ctypes.c_int64
@@ -186,6 +195,9 @@ def _metrics():
                 "oneside_hits": obs.counter("torch_oneside_pull_hits"),
                 "oneside_fallbacks": obs.counter(
                     "torch_oneside_pull_fallbacks"),
+                # Waits that actually parked on a range still referenced
+                # by the wire (the reference-drain backpressure signal).
+                "wait_stalls": obs.counter("torch_tensor_arena_wait_stalls"),
             }
         return _metrics_cache
 
@@ -366,6 +378,25 @@ class TensorArena:
             host).reshape(-1).view(np.uint8)
         return off, host.nbytes, host
 
+    def busy_bytes(self) -> int:
+        """Bytes allocated or still referenced by the wire (0 once
+        closed)."""
+        if not self._h:
+            return 0
+        return self._L.tbrpc_arena_busy_bytes(self._h)
+
+    def wait_reusable(self, off: int, timeout_ms: int = -1) -> bool:
+        """Wait until the range at ``off`` is no longer referenced by the
+        wire (< 0: no bound, 0: probe). A wait that has to park counts in
+        ``torch_tensor_arena_wait_stalls``."""
+        if self._L.tbrpc_arena_wait_reusable(self._h, off, 0) == 0:
+            return True
+        if timeout_ms == 0:
+            return False
+        _metrics()["wait_stalls"].add(1)
+        return self._L.tbrpc_arena_wait_reusable(self._h, off,
+                                                 timeout_ms) == 0
+
     def close(self) -> None:
         if self._h:
             self._L.tbrpc_arena_destroy(self._h)
@@ -399,7 +430,9 @@ class OnesideWindow:
     same-host process that mapped the arena's shm segment. ``publish``
     hands over a range the caller already wrote; the window frees the
     displaced range through epoch-based reclamation, never under a reader
-    mid-copy."""
+    mid-copy. ``own=False`` publishes a range in place and never frees it
+    (serving KV pages, whose ranges their session owns); such a range is
+    rewritten between ``begin_rewrite`` and the next ``publish``."""
 
     def __init__(self, arena: TensorArena, n_slots: int = 256,
                  n_readers: int = 64):
@@ -410,14 +443,21 @@ class OnesideWindow:
         if not self._h:
             raise MemoryError("oneside window create failed (arena full?)")
 
-    def publish(self, name: str, off: int, nbytes: int,
-                version: int) -> None:
+    def publish(self, name: str, off: int, nbytes: int, version: int,
+                own: bool = True) -> None:
         if not self._h:
             raise RuntimeError("oneside window is closed")
         if self._L.tbrpc_oneside_publish(self._h, name.encode(), off,
-                                         nbytes, version, 1) != 0:
+                                         nbytes, version,
+                                         1 if own else 0) != 0:
             raise ValueError(
                 f"oneside publish({name!r}, off={off}, n={nbytes}) refused")
+
+    def begin_rewrite(self, name: str) -> None:
+        """Write-lock ``name`` (its seqlock goes odd, readers retry) while
+        its payload is rewritten in place; the next ``publish`` commits."""
+        if self._h:
+            self._L.tbrpc_oneside_begin_rewrite(self._h, name.encode())
 
     def unpublish(self, name: str) -> bool:
         if not self._h:
@@ -585,6 +625,11 @@ class TensorView:
             return np.empty(0, dtype=np.uint8)
         buf = (ctypes.c_uint8 * self.nbytes).from_address(self._ptr)
         return np.ctypeslib.as_array(buf)
+
+    @property
+    def zero_copy(self) -> bool:
+        """True when the bytes are the sender's pages, not a copy."""
+        return not self._copied
 
     def release(self) -> None:
         if self._view:
@@ -994,11 +1039,15 @@ TensorHandler = Callable[[str, bytes, Optional[object]],
 
 def add_tensor_service(server: native.Server, name: str,
                        handler: TensorHandler,
-                       arena: Optional[TensorArena] = None) -> TensorArena:
+                       arena: Optional[TensorArena] = None,
+                       device_ctx: Callable[[], object] = (
+                           contextlib.nullcontext)) -> TensorArena:
     """Host a tensor service on a native Server: the handler reads request
     tensors IN PLACE (a numpy view of the sender's pages) and returns
     response tensors through the service's own arena (by reference on the
-    wire). Returns that arena."""
+    wire). Returns that arena. ``device_ctx()`` is entered around the
+    handler and the staging of its response (a server's CUDA stream), so
+    every copy and kernel of one request runs inside it."""
     L = _bind_tensor_api(lib())
     srv_arena = arena if arena is not None else TensorArena(256 << 20)
 
@@ -1039,18 +1088,20 @@ def add_tensor_service(server: native.Server, name: str,
                                 E_UNDECODABLE,
                                 f"undecodable tensor payload "
                                 f"(meta={meta!r}): {e}") from e
-            r, out_arr = handler(method.decode(), request, att_view)
-            off = nbytes = 0
-            if isinstance(out_arr, WireTensor):
-                # Pre-encoded response: stage the bytes, send its header.
-                if out_arr.placed is not None:
-                    off, nbytes = out_arr.placed
-                else:
-                    off, nbytes, _ = srv_arena.place(out_arr.data)
-                r = out_arr.header + r
-            elif out_arr is not None:
-                off, nbytes, host = srv_arena.place(out_arr)
-                r = _encode_meta(host) + r
+            with device_ctx():
+                r, out_arr = handler(method.decode(), request, att_view)
+                off = nbytes = 0
+                if isinstance(out_arr, WireTensor):
+                    # Pre-encoded response: stage the bytes, send its
+                    # header.
+                    if out_arr.placed is not None:
+                        off, nbytes = out_arr.placed
+                    else:
+                        off, nbytes, _ = srv_arena.place(out_arr.data)
+                    r = out_arr.header + r
+                elif out_arr is not None:
+                    off, nbytes, host = srv_arena.place(out_arr)
+                    r = _encode_meta(host) + r
             if nbytes:
                 resp_arena[0] = srv_arena.handle
                 resp_off[0] = off

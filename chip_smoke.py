@@ -39,7 +39,17 @@ checkout. Phases, each fatal on failure:
      2-stage 1F1B pipeline over WirePipe and 2-way tensor parallelism
      (depth cut to 2 blocks); each against a plain replay, bit for bit
      where the arithmetic is the same, at the JAX package's pinned
-     tolerance where the batch is split.
+     tolerance where the batch is split;
+  7. single-node streaming serving: the decoder at OpenAI gpt2's
+     embedding widths (n_embd 768, vocab 50257, n_ctx 1024 positions; one
+     attention layer, as the JAX package's decoder; 41,743,104 fp32
+     weights random from --seed) behind a ServingServer on the card
+     (max_batch 8, max_len 1024); 16 sessions streamed over tpu:// by
+     ServingClients on threads, a group of them sharing a block-aligned
+     prompt prefix: monolithic, paged (block_rows 16), and speculative
+     (spec_k 4, n-gram and model drafts). Every session's tokens equal
+     decode_serial's on the card, the paged and speculative runs equal
+     the monolithic one, and no kernel of K1-K3 launches on this path.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after.
@@ -96,6 +106,12 @@ RING_SHARDS = 4
 PLANE = {"sizes": [768] + [3072, 768] * 12, "batch": 8 * 1024,
          "ps_steps": 3, "dp_steps": 2, "pp_steps": 2, "microbatches": 4,
          "tp_sizes": [768, 3072, 768, 3072, 768], "tp_steps": 2}
+# Phase 7: the serving decoder at gpt2's embedding widths (n_embd,
+# vocab_size, n_ctx as max_pos); 16 sessions, prompts 32-256 tokens,
+# budgets 64-256; sessions 0-3 share a 64-token (4-block) prompt prefix.
+SERVE = {"vocab": 50257, "dim": 768, "max_pos": 1024, "max_batch": 8,
+         "max_len": 1024, "block_rows": 16, "sessions": 16, "spec_k": 4,
+         "draft_dim": 64, "prefix": 64, "group": 4}
 
 
 def fail(msg: str) -> None:
@@ -1831,6 +1847,244 @@ def _wait_for(cond, timeout_s: float, what: str) -> None:
         time.sleep(0.01)
 
 
+# ---------------------------------------------------------------- phase 7
+
+def _serve_values(seed: int, vocab: int, dim: int, max_pos: int) -> dict:
+    """DecoderParams fields as numpy: normal embeddings and positions,
+    normal / sqrt(dim) projections (the JAX package's init_decoder)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    s = np.float32(1.0 / np.sqrt(dim))
+    out = {"embed": rng.standard_normal((vocab, dim), dtype=np.float32),
+           "pos": rng.standard_normal((max_pos, dim), dtype=np.float32)}
+    for k in ("wq", "wk", "wv", "wo"):
+        out[k] = rng.standard_normal((dim, dim), dtype=np.float32) * s
+    return out
+
+
+def _serve_sessions(seed: int) -> list:
+    """(prompt, max_tokens) per session; the first ``group`` share a
+    block-aligned prompt prefix."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cfg = SERVE
+    prefix = rng.integers(1, cfg["vocab"], cfg["prefix"]).tolist()
+    out = []
+    for i in range(cfg["sessions"]):
+        n = int(rng.integers(32, 257))
+        if i < cfg["group"]:
+            n = max(n, cfg["prefix"] + 16)
+            prompt = prefix + rng.integers(
+                1, cfg["vocab"], n - cfg["prefix"]).tolist()
+        else:
+            prompt = rng.integers(1, cfg["vocab"], n).tolist()
+        out.append((prompt, int(rng.integers(64, 257))))
+    return out
+
+
+def _top2_gap(params, seq: list) -> tuple:
+    """(argmax, top-2 logit gap) of the step that consumes ``seq[-1]`` at
+    row len(seq)-1, in plain torch at one lane (a mismatch's diagnosis)."""
+    import torch
+
+    from brpc_tpu_torch.models.decoder import decode_step
+
+    dev, dim = params.embed.device, params.embed.shape[1]
+    L = len(seq)
+    kv_k = torch.zeros((1, L, dim), device=dev)
+    kv_v = torch.zeros_like(kv_k)
+    for p, tok in enumerate(seq[:-1]):
+        _n, k, v = decode_step(params, kv_k, kv_v,
+                               torch.tensor([p], device=dev),
+                               torch.tensor([tok], device=dev))
+        kv_k[0, p], kv_v[0, p] = k[0], v[0]
+    p = L - 1
+    x = params.embed[seq[-1]] + params.pos[p]
+    kv_k[0, p], kv_v[0, p] = x @ params.wk, x @ params.wv
+    attn = torch.softmax((kv_k[0] @ (x @ params.wq)) / dim ** 0.5, dim=0)
+    logits = (attn @ kv_v[0]) @ params.wo + 0.5 * params.pos[p]
+    top = torch.topk(logits @ params.embed.T, 2)
+    return int(top.indices[0]), float(top.values[0] - top.values[1])
+
+
+def _stream_sessions(port: int, specs: list) -> dict:
+    """Every session over tpu:// on a thread of its own; the shared-prefix
+    group's followers open once their leader's first token arrived (so
+    its prompt blocks are cached). -> tokens, TTFTs and the wall time."""
+    from brpc_tpu_torch.serving import ServingClient
+
+    n = len(specs)
+    tokens, ttft, errs = [None] * n, [None] * n, []
+    leader_first = threading.Event()
+
+    def one(i):
+        prompt, max_tokens = specs[i]
+        try:
+            if 0 < i < SERVE["group"]:
+                if not leader_first.wait(300):
+                    raise TimeoutError("the prefix leader never streamed")
+            with ServingClient(f"tpu://127.0.0.1:{port}", tenant=f"t{i % 4}",
+                               timeout_ms=60000) as c:
+                with c.open(prompt, max_tokens) as ts:
+                    got = []
+                    for tok in ts:
+                        got.append(tok)
+                        if i == 0:
+                            leader_first.set()
+                    tokens[i], ttft[i] = got, ts.ttft_s
+        except Exception as e:  # noqa: BLE001 — surfaced by the caller
+            errs.append(f"session {i}: {type(e).__name__}: {e}")
+            leader_first.set()
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+        if t.is_alive():
+            errs.append("a stream reader hung")
+    wall = time.monotonic() - t0
+    if errs:
+        fail("serving: " + "; ".join(errs))
+    return {"tokens": tokens, "ttft": ttft, "wall": wall}
+
+
+def serving_path(seed: int, smi: str) -> dict:
+    """Phase 7: single-node streaming serving on the card. Returns each
+    run's launch counts (all zero: the serving path has no kernel)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from brpc_tpu_torch.models.decoder import decode_serial
+    from brpc_tpu_torch.runtime.state import decoder_params_from_numpy
+    from brpc_tpu_torch.serving import ServingServer
+
+    gc.collect()
+    cfg = SERVE
+    dev = torch.device("cuda")
+    B, L = cfg["max_batch"], cfg["max_len"]
+    params = decoder_params_from_numpy(
+        _serve_values(seed + 70, cfg["vocab"], cfg["dim"], cfg["max_pos"]),
+        device=dev)
+    draft = decoder_params_from_numpy(
+        _serve_values(seed + 71, cfg["vocab"], cfg["draft_dim"],
+                      cfg["max_pos"]), device=dev)
+    n_w = sum(t.numel() for t in params)
+    specs = _serve_sessions(seed + 72)
+    per_session = 2 * L * cfg["dim"] * 4
+    arena_bytes = cfg["sessions"] * per_session + (8 << 20)
+    log(f"serving: decoder {n_w} fp32 weights ({4 * n_w / 1e6:.1f} MB), "
+        f"{len(specs)} sessions, prompts "
+        f"{min(len(p) for p, _ in specs)}-{max(len(p) for p, _ in specs)} "
+        f"tokens, budgets {min(m for _, m in specs)}-"
+        f"{max(m for _, m in specs)}; KV {per_session} bytes a session, "
+        f"arena {arena_bytes} bytes")
+    launches = {}
+
+    def run(label, **kw):
+        srv = ServingServer(params, max_batch=B, max_len=L, dim=cfg["dim"],
+                            kv_arena_bytes=arena_bytes, stall_timeout_s=60.0,
+                            ttl_s=600.0, device=dev, **kw)
+        steps = []
+        inner = srv.engine.step
+
+        def timed_step():
+            t = time.monotonic()
+            progressed = inner()
+            if progressed:
+                steps.append((time.monotonic() - t,
+                              srv.engine.last_h2d_bytes))
+            return progressed
+
+        srv.engine.step = timed_step
+        port = srv.start()
+        try:
+            out, got = _counted(f"serving, {label}",
+                                lambda: _stream_sessions(port, specs), {})
+            doc = srv.manager.sessionz_doc()
+        finally:
+            srv.stop()
+        n_tok = sum(len(t) for t in out["tokens"])
+        ttft = np.array(out["ttft"]) * 1e3
+        step_ms = np.array([d for d, _ in steps]) * 1e3
+        h2d = np.array([b for _, b in steps])
+        stats = {"tokens": n_tok, "wall_s": out["wall"],
+                 "tokens_per_s": n_tok / out["wall"],
+                 "ttft_p50_ms": float(np.percentile(ttft, 50)),
+                 "ttft_p99_ms": float(np.percentile(ttft, 99)),
+                 "steps": len(steps),
+                 "step_ms_median": float(np.median(step_ms)),
+                 "h2d_bytes_median": int(np.median(h2d)),
+                 "h2d_bytes_max": int(h2d.max()),
+                 "spec_accept_pct": doc["spec_accept_pct"],
+                 "prefix_hits": doc["prefix_hits"]}
+        log(f"  {label}: {n_tok} tokens in {out['wall']:.3f} s = "
+            f"{stats['tokens_per_s']:.1f} tokens/s; TTFT p50 "
+            f"{stats['ttft_p50_ms']:.1f} ms p99 {stats['ttft_p99_ms']:.1f} "
+            f"ms; {len(steps)} steps, median {stats['step_ms_median']:.2f} "
+            f"ms; host->card {stats['h2d_bytes_median']} bytes a step "
+            f"(median, max {stats['h2d_bytes_max']}); spec accept "
+            f"{stats['spec_accept_pct']}%; prefix hits "
+            f"{stats['prefix_hits']} ({smi})")
+        launches[f"serving_{label.split(',')[0].replace(' ', '_')}"] = got
+        return out["tokens"], stats
+
+    mono, _ = run("monolithic")
+    # The reference: each session alone in lane 0 of the engine's lane
+    # count, its cache on the card.
+    t0 = time.monotonic()
+    serial = [decode_serial(params, p, m, L, lanes=B) for p, m in specs]
+    log(f"  decode_serial (lanes={B}) of {len(specs)} sessions: "
+        f"{time.monotonic() - t0:.1f} s")
+    for i, (got, want) in enumerate(zip(mono, serial)):
+        if got != want:
+            j = next((k for k, (a, b) in enumerate(zip(got, want))
+                      if a != b), min(len(got), len(want)))
+            prompt = specs[i][0]
+            _tok, gap = _top2_gap(params, prompt + want[:j])
+            fail(f"serving: session {i} differs from decode_serial at "
+                 f"token {j} ({got[j:j + 3]} vs {want[j:j + 3]}); the "
+                 f"serial step's top-2 logit gap there is {gap:.3e}")
+    log(f"  every session == decode_serial(lanes={B}) on the card, "
+        f"{sum(len(t) for t in serial)} tokens")
+    # Diagnosis only: one lane runs other matmul shapes than eight.
+    t0 = time.monotonic()
+    diverged = []
+    for i, (p, m) in enumerate(specs):
+        one = decode_serial(params, p, m, L, lanes=1)
+        if one != serial[i]:
+            j = next((k for k, (a, b) in enumerate(zip(one, serial[i]))
+                      if a != b), min(len(one), len(serial[i])))
+            diverged.append((i, j, _top2_gap(params, p + serial[i][:j])[1]))
+    log(f"  decode_serial at one lane ({time.monotonic() - t0:.1f} s): "
+        f"{len(diverged)} of {len(specs)} sessions diverge from {B} lanes"
+        + "".join(f"; session {i} at token {j}, top-2 gap {g:.3e}"
+                  for i, j, g in diverged))
+    paged, st = run("paged", paged=True, block_rows=cfg["block_rows"])
+    if paged != mono:
+        fail("serving: the paged server's tokens != the monolithic one's")
+    if st["prefix_hits"] < 1:
+        fail("serving: the shared prefix never hit the paged cache")
+    log("  paged == monolithic, token for token")
+    for label, kw in (("spec ngram", {"draft": "ngram"}),
+                      ("spec model", {"draft": "model",
+                                      "draft_params": draft})):
+        toks, _st = run(f"{label}, spec_k={cfg['spec_k']}",
+                        spec_k=cfg["spec_k"], **kw)
+        if toks != mono:
+            fail(f"serving: {label} tokens != spec_k=0")
+        log(f"  {label} == spec_k=0, token for token")
+    del params, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -1878,9 +2132,13 @@ def main() -> int:
     t0 = time.monotonic()
     by_path.update(training_plane(args.seed, smi))
     log(f"== phase 6 (training plane) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    by_path.update(serving_path(args.seed, smi))
+    log(f"== phase 7 (serving) {time.monotonic() - t0:.1f} s")
     for r in rows:
-        r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()
-                                 if c.get(r["name"])}
+        # Every path, zeros included: the serving runs list 0 for each.
+        r["launches_by_path"] = {p: c.get(r["name"], 0)
+                                 for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())
         if not r["launches"]:
             fail(f"{r['name']} was launched on no path")

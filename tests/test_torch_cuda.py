@@ -495,3 +495,95 @@ def test_overlapped_driver_hides_wire_time_on_the_card(cuda):
         assert torch.equal(so.params[k], ss.params[k])
     assert to["overlapped_comm_ms"] > 0.0
     assert ts_["overlapped_comm_ms"] == 0.0
+
+
+def test_parameter_server_runs_on_a_stream_of_its_own(cuda, monkeypatch):
+    """Every handler's device work — here a push's H2D and K1 — runs on
+    the server's stream, not the default stream a trainer in the same
+    process computes on; the pulled and snapshot state is the update's."""
+    from brpc_tpu_torch.runtime import param_server as psmod
+
+    streams = []
+    kernel = psmod.fused_momentum_update
+
+    def spy(*a, **kw):
+        streams.append(torch.cuda.current_stream(cuda).cuda_stream)
+        return kernel(*a, **kw)
+
+    monkeypatch.setattr(psmod, "fused_momentum_update", spy)
+    w = np.arange(4096, dtype=np.float32).reshape(64, 64)
+    ps = psmod.ParameterServer({"w": w}, device=cuda)
+    cl = psmod.ParameterClient(f"tpu://127.0.0.1:{ps.start()}", device=cuda)
+    try:
+        own = ps._stream.cuda_stream
+        assert own not in (torch.cuda.default_stream(cuda).cuda_stream,
+                           torch.cuda.current_stream(cuda).cuda_stream)
+        g = torch.ones((64, 64), device=cuda)
+        assert cl.push_grad("w", g) == 1
+        assert streams == [own]
+        ref_p, _ = fu.momentum_update_reference(
+            torch.from_numpy(w).to(cuda), torch.zeros_like(g), g)
+        _v, pulled = cl.pull("w")
+        assert torch.equal(pulled, ref_p)
+        assert torch.equal(ps.state().params["w"], ref_p)
+    finally:
+        cl.close()
+        ps.stop()
+
+
+def _serving_params(cuda):
+    from brpc_tpu_torch.models.decoder import init_decoder
+
+    return init_decoder(torch.Generator().manual_seed(3), vocab=2048,
+                        dim=128, max_pos=256, device=cuda)
+
+
+_SERVE_PROMPTS = [list(range(1, 40)), [5, 2, 9], list(range(100, 164)),
+                  [7] * 20, list(range(1, 40)) + [11, 12], [300, 301, 302]]
+
+
+def _serve_on_card(cuda, params, **kw):
+    """Six staggered sessions through an engine on the card -> tokens."""
+    from brpc_tpu_torch.serving import (DONE, CallableSink, DecodeEngine,
+                                        SessionManager)
+
+    mgr = SessionManager(max_len=256, dim=128, kv_arena_bytes=16 << 20,
+                         paged=kw.pop("paged", False), block_rows=16)
+    eng = DecodeEngine(mgr, params, max_batch=4, device=cuda, **kw)
+    assert eng._stream is not None
+    assert eng._stream.cuda_stream != \
+        torch.cuda.default_stream(cuda).cuda_stream
+    outs, sessions = [], []
+    for p in _SERVE_PROMPTS:
+        toks = []
+        outs.append(toks)
+        sessions.append(mgr.open(p, 48, CallableSink(
+            lambda f, toks=toks: toks.append(int(f[1:]))
+            if f.startswith(b"T") else None)))
+        eng.step()
+    for _ in range(2000):
+        if not eng.step() and all(s.state == DONE for s in sessions):
+            break
+    assert all(s.state == DONE for s in sessions)
+    mgr.shutdown()
+    return outs
+
+
+def test_serving_batched_paged_and_spec_equal_serial_on_the_card(cuda):
+    """The continuous batch on the card: every session's tokens equal
+    decode_serial's at the engine's lane count, and the paged pool and
+    both speculative drafts equal the monolithic plain engine."""
+    from brpc_tpu_torch.models.decoder import decode_serial, init_decoder
+
+    params = _serving_params(cuda)
+    mono = _serve_on_card(cuda, params)
+    assert mono == [decode_serial(params, p, 48, 256, lanes=4)
+                    for p in _SERVE_PROMPTS]
+    assert _serve_on_card(cuda, params, paged=True) == mono
+    assert _serve_on_card(cuda, params, spec_k=4) == mono
+    draft = init_decoder(torch.Generator().manual_seed(4), vocab=2048,
+                         dim=32, max_pos=256, device=cuda)
+    assert _serve_on_card(cuda, params, spec_k=4, draft="model",
+                          draft_params=draft) == mono
+    assert _serve_on_card(cuda, params, spec_k=4, draft="model",
+                          draft_params=params) == mono

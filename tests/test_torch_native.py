@@ -1,17 +1,32 @@
-"""The port's native build rule, checked without running a build.
+"""The port's native build rule, checked without running a build, and
+the native surface the serving plane calls.
 
 The port shares ``native/build/`` with the JAX package: it must never
 reconfigure that tree with another compiler (cmake would delete the cache
 and regenerate the tree under the JAX package's processes) and never
 overwrite its library. Its own g++ copy goes to ``native/build_torch/``,
 stamped with the hash of the native sources.
-Every scenario below swaps the build steps for recorders.
+Every build scenario below swaps the build steps for recorders.
+
+The live tests drive the port's bindings on the library it loads: a
+``Stream`` opened by ``open_stream`` and taken by ``accept_stream``
+inside a handler (order, credit backpressure, coded close), the
+progressive HTTP writer, the /sessionz provider slot, the echo service
+and a server's admission settings, ``deadline_remaining_ms``, the arena's
+``busy_bytes``/``wait_reusable`` and ``TensorView.zero_copy``, and the
+latency recorder's read side.
 """
 
 import fcntl
+import json
 import os
+import socket
+import threading
+import time
 import types
+import urllib.request
 
+import numpy as np
 import pytest
 
 from brpc_tpu.runtime import native as jnative
@@ -189,3 +204,307 @@ def test_port_refuses_to_load_beside_another_copy(tmp_path):
     # This process maps the library the port loaded, and no other.
     tnative.lib()
     tnative.refuse_second_copy(tnative.library_path())
+
+
+# ---------------------------------------------------------------------------
+# Live: the serving plane's native surface.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def live_native():
+    from conftest import require_native_lib
+    require_native_lib()
+    tnative.lib()
+
+
+def _stream_server(on_stream, window=0):
+    """A server whose Stream/Open accepts the caller's stream and hands
+    it to ``on_stream`` on a thread of its own."""
+    srv = tnative.Server()
+    seen = {}
+
+    def handler(method, request, attachment):
+        if method == "Deadline":
+            seen["deadline_ms"] = tnative.deadline_remaining_ms()
+            return b"", b""
+        stream = tnative.accept_stream(window)
+        if stream is None:
+            raise tnative.RpcError(tnative.TRPC_EREQUEST, "no stream")
+        threading.Thread(target=on_stream, args=(stream, request),
+                         daemon=True).start()
+        return b"accepted:" + request, b""
+
+    srv.add_service("Stream", handler)
+    return srv, srv.start("127.0.0.1:0"), seen
+
+
+@pytest.mark.parametrize("scheme", ["", "tpu://"])
+def test_stream_round_trip_in_order(live_native, scheme):
+    def serve(stream, request):
+        for i in range(int(request)):
+            assert stream.write(f"m{i}".encode())
+        stream.close()
+
+    srv, port, _ = _stream_server(serve)
+    ch = tnative.Channel(f"{scheme}127.0.0.1:{port}", timeout_ms=5000,
+                         max_retry=0)
+    try:
+        stream, body = tnative.open_stream(ch, "Stream/Open", b"50")
+        assert body == b"accepted:50"
+        got = []
+        with pytest.raises(tnative.StreamClosed) as ei:
+            while True:
+                msg = stream.read(5000)
+                assert msg is not None, "a message never came"
+                got.append(msg)
+        assert ei.value.error == 0, "a clean close carries no code"
+        assert got == [f"m{i}".encode() for i in range(50)]
+        stream.close()
+        stream.close()  # idempotent
+    finally:
+        ch.close()
+        srv.close()
+
+
+def test_stream_credit_backpressure_and_coded_close(live_native):
+    """A reader that does not read: probes report a full window (False),
+    and a coded close reaches the reader past the full window."""
+    state = {}
+    done = threading.Event()
+
+    def serve(stream, _request):
+        writes = 0
+        while stream.write(b"x" * 32, timeout_ms=0):
+            writes += 1
+            if writes > 10000:
+                break
+        state["writes"] = writes
+        state["timed_out"] = not stream.write(b"y", timeout_ms=50)
+        stream.close(tnative.TRPC_ELIMIT)
+        done.set()
+
+    srv, port, _ = _stream_server(serve)
+    ch = tnative.Channel(f"127.0.0.1:{port}", timeout_ms=5000, max_retry=0)
+    try:
+        stream, _ = tnative.open_stream(ch, "Stream/Open", b"",
+                                        max_buf_size=256)
+        assert done.wait(10)
+        assert 0 < state["writes"] < 10000 and state["timed_out"]
+        with pytest.raises(tnative.StreamClosed) as ei:
+            for _ in range(state["writes"] + 2):
+                assert stream.read(5000) is not None
+        assert ei.value.error == tnative.TRPC_ELIMIT
+        stream.close()
+    finally:
+        ch.close()
+        srv.close()
+
+
+def test_open_stream_errors_and_accept_outside_a_handler(live_native):
+    srv = tnative.Server()
+    srv.add_service("Plain", lambda m, r, a: (b"ok", b""))
+    port = srv.start("127.0.0.1:0")
+    ch = tnative.Channel(f"127.0.0.1:{port}", timeout_ms=5000, max_retry=0)
+    try:
+        assert ch.call("Plain/x") == (b"ok", b"")
+        with pytest.raises(tnative.RpcError) as ei:
+            tnative.open_stream(ch, "NoSuch/Open", b"")
+        assert ei.value.code in (tnative.TRPC_ENOSERVICE,
+                                 tnative.TRPC_ENOMETHOD)
+        assert tnative.accept_stream() is None
+    finally:
+        ch.close()
+        srv.close()
+    closed = tnative.Channel("127.0.0.1:1", timeout_ms=100, max_retry=0)
+    closed.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        tnative.open_stream(closed, "Stream/Open")
+
+
+def test_deadline_remaining_inside_and_outside_a_handler(live_native):
+    assert tnative.deadline_remaining_ms() is None
+    srv, port, seen = _stream_server(lambda s, r: s.close())
+    ch = tnative.Channel(f"127.0.0.1:{port}", timeout_ms=3000, max_retry=0)
+    try:
+        ch.call("Stream/Deadline")
+        assert seen["deadline_ms"] is not None
+        assert 0 < seen["deadline_ms"] <= 3000
+    finally:
+        ch.close()
+        srv.close()
+
+
+def test_echo_service_and_admission_settings(live_native):
+    srv = tnative.Server()
+    srv.add_echo_service()
+    srv.add_service("Py", lambda m, r, a: (r, a))
+    srv.set_max_concurrency(8)
+    srv.set_tenant_quota(4)
+    with pytest.raises(RuntimeError, match="refused"):
+        srv.set_inline("Py")  # Python handlers never run inline
+    port = srv.start("127.0.0.1:0")
+    with pytest.raises(RuntimeError, match="before start"):
+        srv.set_max_concurrency(16)
+    srv.set_tenant_quota(0)  # runtime-safe
+    ch = tnative.Channel(f"tpu://127.0.0.1:{port}", timeout_ms=5000)
+    try:
+        for i in range(20):
+            payload = f"echo-{i}".encode()
+            assert ch.call("EchoService/Echo", payload)[0] == payload
+        assert ch.call("Py/x", b"req", b"att") == (b"req", b"att")
+    finally:
+        ch.close()
+        srv.close()
+
+
+def test_progressive_http_writer(live_native):
+    """A chunked response fed line by line after the handler returned;
+    writes after the close report a gone peer."""
+    pids = []
+    ready = threading.Event()
+
+    def handler(path, query, pid):
+        pids.append(pid)
+        ready.set()
+        return 200, f"head {path} {query}\n".encode(), True
+
+    tnative.register_http_stream_handler("/torch_progressive_test", handler)
+    with pytest.raises(RuntimeError, match="already registered"):
+        tnative.register_http_stream_handler("/torch_progressive_test",
+                                             handler)
+    srv = tnative.Server()
+    port = srv.start("127.0.0.1:0")
+    s = socket.create_connection(("127.0.0.1", port), timeout=10)
+    try:
+        s.sendall(b"GET /torch_progressive_test?a=1 HTTP/1.1\r\n"
+                  b"Host: x\r\n\r\n")
+        assert ready.wait(10)
+        for i in range(3):
+            assert tnative.progressive_write(pids[0], f"line{i}\n".encode())
+        tnative.progressive_close(pids[0])
+        buf = b""
+        while b"0\r\n\r\n" not in buf:
+            chunk = s.recv(4096)
+            if not chunk:
+                break
+            buf += chunk
+        header, _, body = buf.partition(b"\r\n\r\n")
+        assert b"Transfer-Encoding: chunked" in header
+        text = b"".join(body.split(b"\r\n")[1::2])
+        assert b"head /torch_progressive_test a=1" in text
+        assert b"line0" in text and b"line2" in text
+        assert not tnative.progressive_write(pids[0], b"late\n")
+    finally:
+        s.close()
+        srv.close()
+
+
+def test_sessionz_provider_slot(live_native):
+    srv = tnative.Server()
+    port = srv.start("127.0.0.1:0")
+    url = f"http://127.0.0.1:{port}/sessionz?format=json"
+    try:
+        def doc_a():
+            return json.dumps({"active": 1, "sessions": [], "who": "a"})
+
+        def doc_b():
+            return json.dumps({"active": 2, "sessions": [], "who": "b"})
+
+        tnative.set_sessionz_provider(doc_a)
+        assert json.loads(urllib.request.urlopen(url, timeout=5).read())[
+            "who"] == "a"
+        tnative.set_sessionz_provider(doc_b)  # the newest serves
+        tnative.clear_sessionz_provider(doc_a)  # not the holder: no-op
+        assert json.loads(urllib.request.urlopen(url, timeout=5).read())[
+            "who"] == "b"
+        tnative.clear_sessionz_provider(doc_b)
+        assert tnative._sessionz_holder["fn"] is None
+    finally:
+        tnative.set_sessionz_provider(None)
+        srv.close()
+
+
+def test_parse_moved_equals_jax():
+    for text in ("session s1 moved:10.0.0.2:8000", "moved:h:1; retry",
+                 "moved:a,b", "", "no address here", None):
+        assert tnative.parse_moved(text) == jnative.parse_moved(text)
+    assert tnative.E_SESSION_MOVED == jnative.E_SESSION_MOVED
+
+
+def test_arena_busy_bytes_wait_reusable_and_zero_copy(live_native):
+    """The port's twin of the JAX package's zero-copy and recycle tests
+    (tests/test_tensor_bridge.py): a handler's in-place write lands in the
+    sender's pages, the freed range becomes reusable, and every range of a
+    loop of sends drains to 0 busy bytes on both sides."""
+    from brpc_tpu_torch.runtime.tensor import (TensorArena, TensorChannel,
+                                               add_tensor_service)
+
+    def handler(method, request, att):
+        if method == "Mark":
+            att[0] = 0xEE  # visible to the sender iff the pages are shared
+        return b"", np.asarray(att) * 2
+
+    server = tnative.Server()
+    srv_arena = add_tensor_service(server, "Echo", handler)
+    port = server.start("127.0.0.1:0")
+    ch = TensorChannel(f"tpu://127.0.0.1:{port}", TensorArena(64 << 20))
+    try:
+        n = 1 << 20
+        off = ch.arena.alloc(n)
+        view = ch.arena.view(off, n)
+        view[:] = 7
+        _payload, resp_view = ch.call_raw("Echo/Mark", b"", off, n)
+        with resp_view:
+            assert resp_view.zero_copy
+        assert view[0] == 0xEE and view[1] == 7
+        ch.arena.free(off)
+        assert ch.arena.wait_reusable(off, 5000)
+        for i in range(10):
+            x = np.full((256, 1024), i, dtype=np.uint8)
+            off = ch.arena.alloc(x.nbytes)
+            ch.arena.view(off, x.nbytes)[:] = x.reshape(-1)
+            _p, v = ch.call_raw("Echo/Mul2", b"", off, x.nbytes)
+            v.release()
+            ch.arena.free(off)
+        deadline = time.monotonic() + 5
+        while ((ch.arena.busy_bytes() or srv_arena.busy_bytes())
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        assert ch.arena.busy_bytes() == 0 and srv_arena.busy_bytes() == 0
+    finally:
+        ch.close()
+        server.close()
+    closed = TensorArena(1 << 20)
+    closed.close()
+    assert closed.busy_bytes() == 0
+
+
+def test_latency_recorder_read_side_and_null_series(live_native):
+    from brpc_tpu_torch.observability import metrics as obs
+
+    from brpc_tpu.observability import metrics as jobs
+
+    # The windowed reads (max, mean, percentiles) follow the native
+    # sampler, once a second: the same samples in a JAX recorder read the
+    # same once both windows hold them.
+    rec = obs.latency("torch_test_native_latency_read")
+    twin = jobs.latency("test_torch_native_latency_read_twin")
+    for us in (100, 200, 300, 4000):
+        rec.record_us(us)
+        twin.record_us(us)
+    assert rec.count() == twin.count() == 4
+    deadline = time.monotonic() + 5
+    while rec.max_us() == 0 or twin.max_us() == 0:
+        assert time.monotonic() < deadline, "the windows never sampled"
+        time.sleep(0.1)
+    assert rec.max_us() == 4000
+    assert rec.snapshot() == twin.snapshot()
+    for name in ("count", "avg_us", "max_us", "p50", "p90", "p99", "p999"):
+        assert getattr(rec, name)() == getattr(twin, name)(), name
+    assert rec.qps() >= 0
+    null = obs.NullSeries()
+    null.add(5)
+    null.record_us(7)
+    null.record_s(0.1)
+    assert (null.count(), null.qps(), null.p99(), null.value()) == \
+        (0, 0, 0, 0)

@@ -11,7 +11,11 @@ Live half (native library, under an armed stall watchdog):
     to PullQ's decode of the same committed version;
   * the JAX package's one-sided tests, on the port: the torn-read hammer,
     epoch reclamation, fallback parity (unmapped, unpublished), a disabled
-    server negotiating off, flight events and the stats document.
+    server negotiating off, flight events and the stats document;
+  * the doorbell-free input polling flag over the port's echo service, and
+    serving KV published in place: a session's planes (and a paged
+    manager's per-block slots) read one-sidedly mid-decode equal the live
+    rows at version == rows filled, and release unpublishes them.
 
 Hammer tests run until they have counted enough reads and publishes,
 under an explicit deadline, not for a fixed time.
@@ -450,3 +454,78 @@ def test_oneside_stats_json_document(oneside_env):
         assert key in st
     assert isinstance(st["windows"], list)
     assert st == json.loads(json.dumps(st))
+
+
+def test_input_poll_flag_roundtrip_and_echo(oneside_env):
+    """The polling flag reloads at runtime and echoes over tpu:// stay
+    correct while it is armed."""
+    from brpc_tpu_torch.runtime import native
+
+    L = native.lib()
+    assert L.tbrpc_flag_set(b"rpc_input_poll_us", b"200") == 0
+    try:
+        srv = native.Server()
+        srv.add_echo_service()
+        port = srv.start("127.0.0.1:0")
+        ch = native.Channel(f"tpu://127.0.0.1:{port}", timeout_ms=5000)
+        for i in range(50):
+            payload = f"poll-{i}".encode()
+            assert ch.call("EchoService/Echo", payload)[0] == payload
+        ch.close()
+        srv.close()
+    finally:
+        assert L.tbrpc_flag_set(b"rpc_input_poll_us", b"0") == 0
+    assert L.tbrpc_flag_set(b"rpc_input_poll_us", b"-5") != 0
+
+
+def test_serving_kv_pages_publishable(oneside_env):
+    """KV planes published in place (not owned) at version == rows
+    filled; a one-sided read mid-decode equals the live plane; the lane
+    sweep's release unpublishes before the range can be reused."""
+    from brpc_tpu_torch.serving.engine import DecodeEngine
+    from brpc_tpu_torch.serving.session import CallableSink, SessionManager
+
+    mgr = SessionManager(max_len=16, dim=8, publish_kv=True)
+    assert mgr.oneside is not None
+    eng = DecodeEngine(mgr, max_batch=2, device="cpu")
+    sess = mgr.open([1, 2, 3], 8, CallableSink(lambda f: None))
+    for _ in range(4):
+        eng.step()
+    rd = ttensor.OnesideReader.map(mgr.oneside.describe())
+    assert rd is not None
+    v, payload = rd.read(f"kv:{sess.id}:k")
+    assert v == sess.pos == 4
+    arr = np.frombuffer(payload, np.float32).reshape(16, 8)
+    np.testing.assert_array_equal(arr, np.asarray(sess.kv_k))
+    assert arr[:sess.pos].any() and not arr[sess.pos:].any()
+    for _ in range(40):
+        eng.step()
+    with pytest.raises(ttensor.OnesideMiss):
+        rd.read(f"kv:{sess.id}:k")
+    rd.close()
+    mgr.shutdown()
+
+
+def test_serving_kv_blocks_publishable_per_block(oneside_env):
+    """The paged form: every table slot ``kv:<sid>:k:<j>`` reads the
+    block's rows at version == rows filled in that block."""
+    from brpc_tpu_torch.serving.engine import DecodeEngine
+    from brpc_tpu_torch.serving.session import CallableSink, SessionManager
+
+    r, dim = 4, 8
+    mgr = SessionManager(max_len=16, dim=dim, publish_kv=True, paged=True,
+                         block_rows=r)
+    eng = DecodeEngine(mgr, max_batch=2, device="cpu")
+    sess = mgr.open([1, 2, 3, 4, 5, 6], 8, CallableSink(lambda f: None))
+    for _ in range(7):
+        eng.step()
+    rd = ttensor.OnesideReader.map(mgr.oneside.describe())
+    with mgr._mu:
+        k_rows, _v = mgr._gather_rows_locked(sess)
+    for j, _bid in enumerate(sess.block_table):
+        v, payload = rd.read(f"kv:{sess.id}:k:{j}")
+        assert v == min(r, max(0, sess.pos - j * r))
+        blk = np.frombuffer(payload, np.float32).reshape(r, dim)
+        np.testing.assert_array_equal(blk[:v], k_rows[j * r:j * r + v])
+    rd.close()
+    mgr.shutdown()
