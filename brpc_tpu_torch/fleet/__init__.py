@@ -14,9 +14,13 @@ fleet may mix shards, clients and migrators of the two packages.
   FleetServer   one shard: ParameterServer + registry heartbeat
   FleetClient   scatter/gather client with mid-reshard routing
   Migrator      watch-triggered planner + bandwidth-bounded migrator
+  FleetObserver observability plane: cross-process trace assembly and
+                registry-driven metric/health rollups (lives in
+                brpc_tpu_torch.observability.fleet_view)
 """
 
 from brpc_tpu_torch.fleet.fleet_client import FleetClient
+from brpc_tpu_torch.observability.fleet_view import FleetObserver
 from brpc_tpu_torch.fleet.migrator import (Migrator, Move, ReshardPlan,
                                            plan_reshard, regime_assignment)
 from brpc_tpu_torch.fleet.registry import (Registration, RegistryHub,
@@ -27,7 +31,7 @@ from brpc_tpu_torch.fleet.server import FleetServer
 from brpc_tpu_torch.fleet.shard_map import ShardMap, key_point
 
 __all__ = [
-    "FleetClient", "FleetServer", "Migrator", "Move", "Registration",
+    "FleetClient", "FleetObserver", "FleetServer", "Migrator", "Move", "Registration",
     "RegistryHub", "RegistryWatcher", "ReshardPlan", "ShardMap",
     "clear_registry", "deregister", "install_registry", "key_point",
     "list_servers", "plan_reshard", "regime_assignment", "register",

@@ -76,6 +76,12 @@ def state() -> str:
     return STATE_NAMES.get(native.lib().tbrpc_health_state(), "unknown")
 
 
+def health_state() -> str:
+    """``state()`` under the name the package exports (``state`` is too
+    generic to hoist out of this module)."""
+    return state()
+
+
 def health() -> Dict:
     """The decoded /healthz document: state, reason, since_us, stall
     count, transition history, last dump path."""

@@ -209,3 +209,24 @@ def dump_vars(prefix: str = "") -> str:
     """Every exposed variable as "name : value" lines (/vars parity)."""
     return _snapshot_buf(native.lib().tbrpc_vars_dump,
                          prefix.encode()).decode(errors="replace")
+
+
+def dump_prometheus() -> str:
+    """Prometheus text format, byte-identical to /brpc_metrics."""
+    return _snapshot_buf(native.lib().tbrpc_vars_dump_prometheus).decode(
+        errors="replace")
+
+
+def dump_fibers() -> str:
+    """Every live fiber with its state and, for a parked fiber, a
+    symbolized stack (the /fibers page), reachable from a plain thread
+    even when every fiber worker is parked."""
+    return _snapshot_buf(native.lib().tbrpc_debug_dump_fibers).decode(
+        errors="replace")
+
+
+def dump_ici() -> str:
+    """Sender/receiver state of every live tpu:// endpoint (TX credit,
+    pending control bytes, parked writers): dump_fibers' companion for
+    wedge hunting, here beside it as the JAX package has it."""
+    return native.dump_ici()

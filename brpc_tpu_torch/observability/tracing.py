@@ -6,16 +6,41 @@ and the wire; a server handler's callback thread carries its server span.
 breakdown of the tensor path: rpc / arena_stage / device_put / dequant /
 fused_update); ``trace_span(name)`` opens a span of its own. Both no-op
 cheaply while rpcz is off.
+
+The read side: ``dump_rpcz`` returns the collected spans without an HTTP
+round trip and raises the typed ``RpczDisabled`` while collection is
+off (an empty list always means "nothing matched"); ``find_trace``
+finds the newest trace of a method; ``rpcz_set_sample_1_in_n`` keeps
+rpcz on at bounded cost by sampling one in N new root traces.
+
+Switch rpcz on only after the process's first native server has
+started: a process that enables it before any server exists dies with
+``std::bad_alloc`` when that first server starts (a fault of the shared
+native layer).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import json
 import time
-from typing import Iterator, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 from brpc_tpu_torch.runtime import native
+
+
+class RpczDisabled(RuntimeError):
+    """Typed "rpcz is off" signal: span dumps raise it while collection is
+    disabled, so a caller tells "tracing was off" from "nothing matched".
+    ``source`` names where the dump was attempted ("local", or a member's
+    address in a fleet)."""
+
+    def __init__(self, source: str = "local"):
+        super().__init__(
+            f"rpcz is disabled on {source} (enable with rpcz_enable() or "
+            "GET /flags/rpcz_enabled?setvalue=1)")
+        self.source = source
 
 
 def rpcz_enable(on: bool = True) -> None:
@@ -24,6 +49,20 @@ def rpcz_enable(on: bool = True) -> None:
 
 def rpcz_enabled() -> bool:
     return native.lib().tbrpc_rpcz_enabled() != 0
+
+
+def rpcz_set_sample_1_in_n(n: int) -> None:
+    """Collect 1 of every ``n`` NEW root traces (1 = every trace); spans
+    inside a sampled trace always record, so sampled traces stay whole
+    across the fleet. The same storage as the native rpcz_sample_1_in_n
+    flag."""
+    if native.lib().tbrpc_flag_set(b"rpcz_sample_1_in_n",
+                                   str(int(n)).encode()) != 0:
+        raise ValueError(f"rpcz_sample_1_in_n rejected {n!r} (must be >= 1)")
+
+
+def rpcz_sample_1_in_n() -> int:
+    return native.lib().tbrpc_rpcz_sample_1_in_n()
 
 
 def current_trace() -> Tuple[int, int]:
@@ -108,3 +147,25 @@ def trace_span(name: str, *, server_side: bool = False
         L.tbrpc_span_emit(trace_id, span_id, parent_span,
                           1 if server_side else 0, start_us, end_us,
                           handle.error_code, name.encode())
+
+
+def dump_rpcz(trace_id: int = 0) -> List[dict]:
+    """Collected spans as dicts (annotations included), the fields the
+    /rpcz page renders; ``trace_id`` != 0 narrows to one trace, oldest
+    first. Raises ``RpczDisabled`` while collection is off."""
+    from brpc_tpu_torch.observability.metrics import _snapshot_buf
+
+    L = native.lib()
+    if L.tbrpc_rpcz_enabled() == 0:
+        raise RpczDisabled("local")
+    raw = _snapshot_buf(L.tbrpc_rpcz_dump_json, trace_id)
+    return json.loads(raw.decode(errors="replace")) if raw else []
+
+
+def find_trace(service_method: str) -> Optional[str]:
+    """The trace id (hex) of the most recent span of ``service_method``;
+    None if none was collected."""
+    for span in dump_rpcz():
+        if span["service_method"] == service_method:
+            return span["trace_id"]
+    return None

@@ -76,9 +76,14 @@ TRPC_ECONNECT = 2007        # connect failed
 # The connection-killed subset (the client's QoS self-heal keys on it).
 TRANSPORT_DEAD = (TRPC_EEOF, TRPC_EFAILEDSOCKET, TRPC_ECONNECT)
 
-# The serving plane's structural code: the session now lives on another
-# server, whose address the text carries as "moved:<addr>" (2040-2046 are
-# the tensor plane's, 2047 the serving fleet's drain refusal).
+# The serving fleet's structural codes (2040-2046 are the tensor plane's),
+# classified on the code, never on message strings:
+#   E_DRAINING      — the server refuses new sessions while it migrates
+#                     its live ones out: retriable on another member, the
+#                     text carries the retry_after_ms pacer hint;
+#   E_SESSION_MOVED — the session now lives on another server, whose
+#                     address the text carries as "moved:<addr>".
+E_DRAINING = 2047
 E_SESSION_MOVED = 2048
 
 _RETRY_AFTER_RE = re.compile(r"retry_after_ms=(\d+)")
@@ -366,12 +371,21 @@ def _load() -> ctypes.CDLL:
     L.tbrpc_vars_dump.restype = ctypes.c_int64
     L.tbrpc_vars_dump.argtypes = [
         ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t]
+    L.tbrpc_vars_dump_prometheus.restype = ctypes.c_int64
+    L.tbrpc_vars_dump_prometheus.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
+    L.tbrpc_rpcz_dump_json.restype = ctypes.c_int64
+    L.tbrpc_rpcz_dump_json.argtypes = [
+        ctypes.c_uint64, ctypes.c_char_p, ctypes.c_size_t]
+    L.tbrpc_debug_dump_fibers.restype = ctypes.c_int64
+    L.tbrpc_debug_dump_fibers.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
     L.tbrpc_debug_dump_ici.restype = ctypes.c_int64
     L.tbrpc_debug_dump_ici.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
     L.tbrpc_rpcz_enabled.restype = ctypes.c_int
     L.tbrpc_rpcz_set_enabled.argtypes = [ctypes.c_int]
     L.tbrpc_rpcz_sample_root.restype = ctypes.c_int
     L.tbrpc_rpcz_sample_root.argtypes = []
+    L.tbrpc_rpcz_sample_1_in_n.restype = ctypes.c_int
+    L.tbrpc_rpcz_sample_1_in_n.argtypes = []
     L.tbrpc_trace_new_id.restype = ctypes.c_uint64
     L.tbrpc_trace_current.argtypes = [
         ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64)]
@@ -517,6 +531,21 @@ class RpcError(Exception):
     def overloaded(self) -> bool:
         """True for the overload-shed codes (ELIMIT / EOVERCROWDED)."""
         return self.code in (TRPC_ELIMIT, TRPC_EOVERCROWDED)
+
+    @property
+    def draining(self) -> bool:
+        """True when the server refused because it is draining
+        (E_DRAINING): retriable on another member, paced by
+        retry_after_ms, never counted as overload."""
+        return self.code == E_DRAINING
+
+    @property
+    def moved_to(self) -> Optional[str]:
+        """The forwarding address of an E_SESSION_MOVED redirect, or None
+        (only a moved error is ever parsed for an address)."""
+        if self.code != E_SESSION_MOVED:
+            return None
+        return parse_moved(self.text)
 
 
 # Byte-service handler: (method, request, attachment) -> (response,

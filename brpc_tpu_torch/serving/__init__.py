@@ -16,11 +16,22 @@ retires sessions at step boundaries, running the decoder on the card.
              the /gen HTTP chunked fallback
   client   — ServingClient/TokenStream/SessionShed: HIGH-stamped session
              control, token iteration with TTFT tracking
+  router   — ServingRouter (sticky ketama placement by session id with a
+             penalty box and load-aware spill), ServingFleetClient and
+             FleetTokenStream (reads follow "moved:" redirects through
+             Gen/Resume, prefix-exact)
+  fleet    — FleetServingServer: registry membership by role, live KV
+             migration (MigrateService Probe/Install over the tensor wire
+             or a one-sided read), drain, prefill/decode disaggregation
 """
 
 from brpc_tpu_torch.serving.client import (ServingClient, SessionShed,
                                            TokenStream)
 from brpc_tpu_torch.serving.engine import DecodeEngine
+from brpc_tpu_torch.serving.fleet import FleetServingServer
+from brpc_tpu_torch.serving.router import (FleetTokenStream,
+                                           ServingFleetClient,
+                                           ServingRouter)
 from brpc_tpu_torch.serving.server import ServingServer
 from brpc_tpu_torch.serving.session import (ACTIVE, DONE, FROZEN, QUEUED,
                                             SHED, CallableSink,
@@ -30,7 +41,9 @@ from brpc_tpu_torch.serving.session import (ACTIVE, DONE, FROZEN, QUEUED,
 
 __all__ = [
     "ACTIVE", "DONE", "FROZEN", "QUEUED", "SHED",
-    "CallableSink", "DecodeEngine", "ProgressiveSink", "ServingClient",
-    "ServingServer", "Session", "SessionManager", "SessionShed",
-    "StreamSink", "TokenStream", "serving_metrics",
+    "CallableSink", "DecodeEngine", "FleetServingServer",
+    "FleetTokenStream", "ProgressiveSink", "ServingClient",
+    "ServingFleetClient", "ServingRouter", "ServingServer", "Session",
+    "SessionManager", "SessionShed", "StreamSink", "TokenStream",
+    "serving_metrics",
 ]

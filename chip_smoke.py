@@ -13,7 +13,8 @@ checkout. Phases, each fatal on failure:
      1-D one, bit-identical; K3 (flash carry) at one Llama 3 8B attention
      layer and at bench.py's flash point plus edge cases, within stated
      tolerances; times at the largest shapes beside the bound and a
-     library call where one computes the same function;
+     library call where one computes the same function (K2 int8's,
+     ``codes.view(nb, block) * scale.view(nb, 1)``, held bit for bit);
   3. the parameter-server path: a ParameterServer on the card holding the
      GPT-2 small parameter set (124,439,808 fp32 values, random from
      --seed) serves pulls and int8 pushes over tpu:// to clients in this
@@ -49,7 +50,17 @@ checkout. Phases, each fatal on failure:
      prompt prefix: monolithic, paged (block_rows 16), and speculative
      (spec_k 4, n-gram and model drafts). Every session's tokens equal
      decode_serial's on the card, the paged and speculative runs equal
-     the monolithic one, and no kernel of K1-K3 launches on this path.
+     the monolithic one, and no kernel of K1-K3 launches on this path;
+  8. the serving fleet at phase 7's decoder and sessions, every member a
+     FleetServingServer on the card in this process over one registry
+     hub: a traced session migrated A -> B assembled into one trace, a
+     drain of A with 16 sessions open (each of A's moves to B and resumes,
+     a new open at A answers E_DRAINING) observed by a FleetObserver, a
+     one-sided drain with one forced miss taking the bytes path, the
+     shared-prefix group migrated between paged members (fewer KV bytes
+     than its full planes), and a prefill/decode split against a
+     colocated pair. Every stream equals decode_serial's on the card, no
+     session stays live on two members, and no kernel of K1-K3 launches.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after.
@@ -334,16 +345,41 @@ def _time_momentum(p, m, g, n, rate) -> dict:
 
 
 def _time_dequant(q, s, block, n, shape, rate) -> dict:
+    """K2's times. For int8 codes one PyTorch call computes the same
+    function, ``codes.view(nb, block) * scale.view(nb, 1)`` (int8 x fp32
+    promotes to fp32: one exact widening and one multiply); it must equal
+    the kernel bit for bit. fp8 has none: torch does not promote
+    float8_e4m3fn with float32."""
+    import torch
+
     from brpc_tpu_torch.ops import quantize as qz
 
     ms = cuda_ms(lambda: qz.dequantize_blocks(q, s, block=block, n=n,
                                               shape=shape))
     plain = cuda_ms(lambda: qz.dequantize_reference(q, s, block=block, n=n,
                                                     shape=shape))
+    lib = None
+    if q.dtype == torch.int8:
+        if n % block:
+            fail(f"K2's library call needs whole blocks: n={n} block={block}")
+        nb = n // block
+
+        def library():
+            return q.view(nb, block) * s.view(nb, 1)
+
+        got = library().view(tuple(shape))
+        if got.dtype != torch.float32 or not torch.equal(
+                got, qz.dequantize_blocks(q, s, block=block, n=n,
+                                          shape=shape)):
+            fail("codes.view(nb, block) * scale.view(nb, 1) != "
+                 "brpc_dequant_int8")
+        log(f"brpc_dequant_int8 == codes.view(nb, block) * "
+            f"scale.view(nb, 1), bit for bit, at {tuple(shape)}")
+        lib = cuda_ms(library)
     return {"ms": ms, "plain_ms": plain,
             "bound_ms": _bound(float(n + 4 * s.numel() + 4 * n), rate),
             "bound_by": "bytes",
-            "library_ms": None}
+            "library_ms": lib}
 
 
 # ---------------------------------------------------------------- phase 2, K3
@@ -1952,6 +1988,9 @@ def _stream_sessions(port: int, specs: list) -> dict:
     return {"tokens": tokens, "ttft": ttft, "wall": wall}
 
 
+_SERVE_CACHE: dict = {}
+
+
 def serving_path(seed: int, smi: str) -> dict:
     """Phase 7: single-node streaming serving on the card. Returns each
     run's launch counts (all zero: the serving path has no kernel)."""
@@ -2079,10 +2118,405 @@ def serving_path(seed: int, smi: str) -> dict:
         if toks != mono:
             fail(f"serving: {label} tokens != spec_k=0")
         log(f"  {label} == spec_k=0, token for token")
-    del params, draft
+    del draft
+    # Phase 8 serves the same decoder and sessions: it takes the weights
+    # and the serial references from here.
+    _SERVE_CACHE.update(params=params, specs=specs, serial=serial)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------- phase 8
+
+def _fleet_key(client, addr: str, prefix: str) -> str:
+    """The first key "<prefix>-<j>" whose sticky owner is ``addr``."""
+    for j in range(100000):
+        key = f"{prefix}-{j}"
+        if client.router.route(key) == addr:
+            return key
+    fail(f"serving fleet: no session key owned by {addr}")
+
+
+def _fleet_streams(client, items, when=None, action=None) -> dict:
+    """Open ``items`` ((key, prompt, max_tokens) each) through the fleet
+    client, each read to its end on a thread of its own. Once
+    ``when(streams)`` holds (polled), ``action()`` runs on this thread
+    while the streams go on. -> the streams, the action's result and the
+    wall time from the first open to the last token."""
+    n = len(items)
+    streams, errs = [None] * n, []
+    opened = threading.Barrier(n + 1)
+
+    def one(i):
+        key, prompt, max_tokens = items[i]
+        try:
+            streams[i] = client.open(prompt, max_tokens, session_key=key)
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            errs.append(f"session {key}: open: {type(e).__name__}: {e}")
+        opened.wait()
+        try:
+            if streams[i] is not None:
+                for _tok in streams[i]:
+                    pass
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            errs.append(f"session {key}: {type(e).__name__}: {e}")
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    opened.wait()
+    result = None
+    if action is not None:
+        deadline = time.monotonic() + 300
+        while not when(streams):
+            if errs or time.monotonic() > deadline:
+                fail("serving fleet: the streams never reached the "
+                     "action's point: " + "; ".join(errs))
+            time.sleep(0.005)
+        result = action()
+    for t in threads:
+        t.join(600)
+        if t.is_alive():
+            errs.append("a stream reader hung")
+    wall = time.monotonic() - t0
+    if errs:
+        fail("serving fleet: " + "; ".join(errs))
+    return {"streams": streams, "result": result, "wall": wall}
+
+
+def _stream_stats(streams, wall) -> dict:
+    import numpy as np
+
+    ttft = np.array([ts.ttft_s for ts in streams]) * 1e3
+    n_tok = sum(len(ts.tokens) for ts in streams)
+    return {"tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "ttft_p50_ms": float(np.percentile(ttft, 50)),
+            "ttft_p99_ms": float(np.percentile(ttft, 99))}
+
+
+def serving_fleet_path(seed: int, smi: str) -> dict:
+    """Phase 8: the serving fleet on the card, every member on the one
+    card in this process over one registry hub, at phase 7's decoder and
+    sessions: a drain (A -> B) with the FleetObserver and a trace across
+    both members, a one-sided drain with a forced miss, a paged
+    migration of the shared-prefix group, and a prefill/decode split
+    against a colocated pair. Every stream equals decode_serial(lanes=8);
+    returns the path's launch counts (all zero)."""
+    import numpy as np
+    import torch
+
+    from brpc_tpu_torch.fleet import RegistryHub, clear_registry
+    from brpc_tpu_torch.observability import tracing
+    from brpc_tpu_torch.observability.fleet_view import FleetObserver
+    from brpc_tpu_torch.runtime import native
+    from brpc_tpu_torch.serving import (FleetServingServer, ServingClient,
+                                        ServingFleetClient, serving_metrics)
+
+    cfg = SERVE
+    params, specs, serial = (_SERVE_CACHE["params"], _SERVE_CACHE["specs"],
+                             _SERVE_CACHE["serial"])
+    dev = torch.device("cuda")
+    B, L, D = cfg["max_batch"], cfg["max_len"], cfg["dim"]
+    per_session = 2 * L * D * 4
+    kv_bytes = serving_metrics()["migrated_kv_bytes"]
+    hub = RegistryHub()
+    hub.start()
+    live_members = []
+    out = {}
+
+    def member(tag, sessions, **kw):
+        srv = FleetServingServer(
+            hub.hostport, params, tag=tag, max_batch=B, max_len=L, dim=D,
+            kv_arena_bytes=sessions * per_session + (8 << 20),
+            stall_timeout_s=60.0, ttl_s=600.0, reg_ttl_s=FLEET_TTL_S,
+            device=dev, **kw)
+        srv.start()
+        live_members.append(srv)
+        return srv
+
+    def client(tag):
+        c = ServingFleetClient(hub.hostport, tag=tag, timeout_ms=60000,
+                               op_deadline_s=120.0)
+        c.router.refresh(force=True)
+        return c
+
+    def close(c, *servers):
+        c.close()
+        for srv in servers:
+            srv.stop()
+            live_members.remove(srv)
+
+    def check_tokens(label, streams, idx):
+        for ts, i in zip(streams, idx):
+            if ts.tokens != serial[i]:
+                j = next((k for k, (x, y) in enumerate(
+                    zip(ts.tokens, serial[i])) if x != y),
+                    min(len(ts.tokens), len(serial[i])))
+                fail(f"serving fleet, {label}: session {i} != "
+                     f"decode_serial(lanes={B}) at token {j} (resumes "
+                     f"{ts.resumes})")
+
+    def run():
+        # -- 1. drain, observed -------------------------------------
+        # One process: every member's /vars is the process's, so each
+        # fleetz row reads the same series, and torch_serving_sessions
+        # follows the newest manager. A is made last: its sessions are
+        # the live ones when the observer looks.
+        b = member("cs_drain", 16)
+        a = member("cs_drain", 16)
+        c = client("cs_drain")
+        # Trace: rpcz on after the members started; one open on A, its
+        # migration to B and the resume there, under one root span.
+        tracing.rpcz_enable(True)
+        tracing.rpcz_set_sample_1_in_n(1)
+        ti = 4
+        tkey = _fleet_key(c, a.addr, "trace")
+        with tracing.trace_span("chip_smoke/fleet_session") as root:
+            ts = c.open(specs[ti][0], specs[ti][1], session_key=tkey)
+            while len(ts.tokens) < 3:
+                ts.read_token(60000)
+            if not a.migrate_session(a.manager.get(tkey), b.addr):
+                fail("serving fleet: the traced session did not migrate")
+            for _tok in ts:
+                pass
+        check_tokens("traced", [ts], [ti])
+        ts.close()
+        trace = FleetObserver(hub.hostport, tag="cs_drain").assemble(
+            root.trace_id)
+        tracing.rpcz_enable(False)
+        servers = {m: [s for s in trace.spans if s["server_side"]
+                       and s["service_method"] == m]
+                   for m in ("Gen/Open", "Gen/Resume")}
+        clients = {s["service_method"]: s.get("peer", "")
+                   for s in trace.spans if not s["server_side"]}
+        if trace.root is None or trace.root["service_method"] != \
+                "chip_smoke/fleet_session" or not all(servers.values()):
+            fail(f"serving fleet: the trace did not assemble: "
+                 f"{trace.render()[:3000]}")
+        log(f"  trace {trace.trace_id}: {len(trace.spans)} spans, one "
+            f"root; Gen/Open served by A ({clients.get('Gen/Open')}), "
+            f"Gen/Resume by B ({clients.get('Gen/Resume')}), "
+            f"resumes {ts.resumes}")
+        if ts.resumes != 1 or ts.addr != b.addr:
+            fail("serving fleet: the traced stream did not follow its move")
+        out["trace_spans"] = len(trace.spans)
+        # The drain: A takes the eight longest trajectories (so they are
+        # live when the last of them has streamed 3 tokens), B the rest.
+        n = len(specs)
+        longest = sorted(range(n), key=lambda i: -(len(specs[i][0])
+                                                   + specs[i][1]))
+        on_a = set(longest[:n // 2])
+        keys = [_fleet_key(c, a.addr if i in on_a else b.addr, f"d{i}")
+                for i in range(n)]
+        items = [(keys[i], specs[i][0], specs[i][1]) for i in range(n)]
+        obs = FleetObserver(hub.hostport, tag="cs_drain")
+        seen = {}
+
+        def ready(streams):
+            return all(streams[i] is not None and len(streams[i].tokens) >= 3
+                       for i in on_a)
+
+        def drain():
+            seen["fleetz"] = obs.fleetz()
+            seen["prom"] = obs.fleet_prometheus()
+            t = time.monotonic()
+            moved = a.drain()
+            return moved, time.monotonic() - t
+
+        before = kv_bytes.value()
+        r = _fleet_streams(c, items, ready, drain)
+        moved, drain_s = r["result"]
+        streams = r["streams"]
+        check_tokens("drain", streams, range(n))
+        shed, done = [], []
+        for i in on_a:
+            s = a.manager.get(keys[i])
+            if s.state == "shed" and s.shed_reason == f"moved:{b.addr}":
+                shed.append(i)
+                if streams[i].resumes < 1:
+                    fail(f"serving fleet: session {i} moved but its stream "
+                         f"never resumed")
+            elif s.state == "done" and streams[i].resumes == 0:
+                done.append(i)  # finished before the drain
+            else:
+                fail(f"serving fleet: A's session {i} ended {s.state} "
+                     f"({s.shed_reason!r})")
+        if moved != len(shed) or moved < 1:
+            fail(f"serving fleet: drain moved {moved}, A shed {len(shed)}")
+        for i in range(n):
+            live = [m.addr for m in (a, b) if m.manager.get(keys[i])
+                    is not None and m.manager.get(keys[i]).state in
+                    ("queued", "active", "frozen")]
+            if live:
+                fail(f"serving fleet: session {i} still live on {live}")
+        with ServingClient(a.addr) as direct:
+            try:
+                direct.open([1], 2)
+            except native.RpcError as e:
+                if not e.draining:
+                    fail(f"serving fleet: a drained member answered {e}")
+            else:
+                fail("serving fleet: a drained member admitted an open")
+        rows = seen["fleetz"]["shards"]
+        if sorted(r_["addr"] for r_ in rows) != sorted([a.addr, b.addr]) \
+                or not all(r_["serving_sessions"] > 0
+                           and r_["serving_tokens_s"] > 0 for r_ in rows):
+            fail(f"serving fleet: fleetz rows {rows}")
+        series = [ln for ln in seen["prom"].splitlines()
+                  if ln and not ln.startswith("fleet_")]
+        if not series or not all('shard="' in ln for ln in series):
+            fail("serving fleet: a series without a shard label")
+        gaps = np.array([streams[i].last_gap_s for i in shed]) * 1e3
+        st = _stream_stats(streams, r["wall"])
+        st.update(moved=moved, done_before=len(done), drain_s=drain_s,
+                  bytes_path=kv_bytes.value() - before,
+                  gap_p50_ms=float(np.percentile(gaps, 50)),
+                  gap_max_ms=float(gaps.max()))
+        out["drain"] = st
+        log(f"  drain: {moved} of A's 8 sessions moved to B "
+            f"({len(done)} had finished) in {drain_s * 1e3:.1f} ms; "
+            f"{st['bytes_path']} KV bytes over the bytes path; resume gap "
+            f"p50 {st['gap_p50_ms']:.1f} ms max {st['gap_max_ms']:.1f} ms; "
+            f"{st['tokens']} tokens in {st['wall_s']:.3f} s = "
+            f"{st['tokens_per_s']:.1f} tokens/s; TTFT p50 "
+            f"{st['ttft_p50_ms']:.1f} ms p99 {st['ttft_p99_ms']:.1f} ms; "
+            f"fleetz sessions/tokens_s "
+            + ", ".join(f"{r_['serving_sessions']}/"
+                        f"{r_['serving_tokens_s']:.0f}" for r_ in rows)
+            + f"; E_DRAINING on a new open ({smi})")
+        close(c, a, b)
+
+        # -- 2. one-sided drain, one forced miss --------------------
+        a, b = member("cs_oneside", 8, publish_kv=True), \
+            member("cs_oneside", 8)
+        c = client("cs_oneside")
+        reads = []
+        read_kv = b._read_kv_oneside
+
+        def spy(manifest):
+            kv = read_kv(manifest)
+            reads.append(int(kv.nbytes))
+            return kv
+
+        b._read_kv_oneside = spy
+        install = a._install_oneside
+        missed = []
+
+        def install_with_one_miss(manifest, dest):
+            if not missed:
+                # The slot vanishes between export and Install: the
+                # destination's read misses and the bytes path serves.
+                missed.append(manifest["session"])
+                a.manager.oneside.unpublish(f"kv:{manifest['session']}:k")
+            return install(manifest, dest)
+
+        a._install_oneside = install_with_one_miss
+        idx = sorted(on_a)
+        items = [(_fleet_key(c, a.addr, f"o{i}"), specs[i][0], specs[i][1])
+                 for i in idx]
+        before = kv_bytes.value()
+        r = _fleet_streams(c, items, lambda s: all(
+            x is not None and len(x.tokens) >= 3 for x in s), a.drain)
+        check_tokens("one-sided drain", r["streams"], idx)
+        moved2 = r["result"]
+        bytes2 = kv_bytes.value() - before
+        if moved2 < 2 or len(reads) != moved2 - 1 or not missed:
+            fail(f"serving fleet: one-sided drain moved {moved2}, "
+                 f"{len(reads)} one-sided reads, miss {missed}")
+        out["oneside"] = {"moved": moved2, "oneside_installs": len(reads),
+                          "oneside_bytes": sum(reads),
+                          "bytes_installs": moved2 - len(reads),
+                          "bytes_path": bytes2}
+        log(f"  one-sided drain: {moved2} moved, {len(reads)} read "
+            f"one-sided ({sum(reads)} KV bytes), {moved2 - len(reads)} "
+            f"over the bytes path after a forced miss ({bytes2} bytes) "
+            f"({smi})")
+        close(c, a, b)
+
+        # -- 3. paged migration of the shared-prefix group ----------
+        a, b = (member("cs_paged", 8, paged=True,
+                       block_rows=cfg["block_rows"]),
+                member("cs_paged", 8, paged=True,
+                       block_rows=cfg["block_rows"]))
+        c = client("cs_paged")
+        group = list(range(cfg["group"]))
+        keys = [_fleet_key(c, a.addr, f"p{i}") for i in group]
+        poss = []
+        export = a.manager.export_session
+
+        def export_logged(sess):
+            manifest, kv = export(sess)
+            poss.append(int(manifest["pos"]))
+            return manifest, kv
+
+        a.manager.export_session = export_logged
+
+        def migrate_group():
+            for k in keys:
+                if not a.migrate_session(a.manager.get(k), b.addr):
+                    fail(f"serving fleet: paged session {k} did not move")
+
+        before = kv_bytes.value()
+        r = _fleet_streams(
+            c, [(k, specs[i][0], specs[i][1]) for k, i in zip(keys, group)],
+            lambda s: all(x is not None and len(x.tokens) >= 3 for x in s),
+            migrate_group)
+        check_tokens("paged", r["streams"], group)
+        slim = kv_bytes.value() - before
+        full = sum(2 * p * D * 4 for p in poss)
+        if slim >= full:
+            fail(f"serving fleet: paged migration shipped {slim} bytes, "
+                 f"the full planes are {full}")
+        out["paged"] = {"slim_bytes": slim, "full_bytes": full,
+                        "sessions": len(poss)}
+        log(f"  paged (block_rows {cfg['block_rows']}): {len(poss)} "
+            f"prefix-group sessions moved, {slim} KV bytes shipped against "
+            f"{full} in full planes ({smi})")
+        close(c, a, b)
+
+        # -- 4. prefill/decode split against colocated --------------
+        idx = list(range(4, 12))
+        for label, roles in (("split", ("prefill", "decode")),
+                             ("colocated", ("both", "both"))):
+            tag = f"cs_{label}"
+            m1, m2 = member(tag, 8, role=roles[0]), \
+                member(tag, 8, role=roles[1])
+            c = client(tag)
+            items = [(f"{label}-{i}", specs[i][0], specs[i][1]) for i in idx]
+            r = _fleet_streams(c, items)
+            check_tokens(label, r["streams"], idx)
+            if label == "split":
+                for (key, _p, _m), ts in zip(items, r["streams"]):
+                    sp, sd = m1.manager.get(key), m2.manager.get(key)
+                    if (ts.resumes != 1 or ts.addr != m2.addr
+                            or sp.shed_reason != f"moved:{m2.addr}"
+                            or sp.out_tokens != ts.tokens[:1]
+                            or sd.state != "done"
+                            or sd.out_tokens != ts.tokens):
+                        fail(f"serving fleet: split session {key}: "
+                             f"resumes {ts.resumes}, prefill "
+                             f"{sp.state}/{sp.shed_reason}")
+            st = _stream_stats(r["streams"], r["wall"])
+            out[label] = st
+            log(f"  {label} ({'/'.join(roles)}): {st['tokens']} tokens in "
+                f"{st['wall_s']:.3f} s = {st['tokens_per_s']:.1f} tokens/s; "
+                f"TTFT p50 {st['ttft_p50_ms']:.1f} ms p99 "
+                f"{st['ttft_p99_ms']:.1f} ms ({smi})")
+            close(c, m1, m2)
+
+    try:
+        _out, got = _counted("serving fleet", run, {})
+    finally:
+        for srv in live_members:
+            srv.stop()
+        clear_registry()
+        hub.stop()
+        _SERVE_CACHE.clear()
+    log(f"  serving fleet: K1/K2/K3 launches {got or 0} on this path")
+    return {"serving_fleet": got}
 
 
 # ---------------------------------------------------------------- main
@@ -2135,6 +2569,9 @@ def main() -> int:
     t0 = time.monotonic()
     by_path.update(serving_path(args.seed, smi))
     log(f"== phase 7 (serving) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    by_path.update(serving_fleet_path(args.seed, smi))
+    log(f"== phase 8 (serving fleet) {time.monotonic() - t0:.1f} s")
     for r in rows:
         # Every path, zeros included: the serving runs list 0 for each.
         r["launches_by_path"] = {p: c.get(r["name"], 0)

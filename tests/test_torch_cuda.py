@@ -7,6 +7,8 @@ conftest imports jax, which the card's host need not have). The
 full-size check is chip_smoke.py.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -587,3 +589,87 @@ def test_serving_batched_paged_and_spec_equal_serial_on_the_card(cuda):
                           draft_params=draft) == mono
     assert _serve_on_card(cuda, params, spec_k=4, draft="model",
                           draft_params=params) == mono
+
+
+def test_fleet_drain_lands_mid_step_on_the_card(cuda, monkeypatch):
+    """A drain whose freezes land while the source engine's step is still
+    running on the card: each session is exported only after that step's
+    device-to-host copy has landed (freeze -> park at the next boundary
+    -> export), ships to the other member, and its stream equals
+    decode_serial at the engine's lane count."""
+    import threading
+
+    from brpc_tpu_torch.fleet import RegistryHub, clear_registry
+    from brpc_tpu_torch.models.decoder import decode_serial
+    from brpc_tpu_torch.serving import (FleetServingServer,
+                                        ServingFleetClient)
+    from brpc_tpu_torch.serving import engine as eng_mod
+
+    params = _serving_params(cuda)
+    hub = RegistryHub()
+    hub.start()
+    kw = dict(max_batch=4, max_len=256, dim=128, kv_arena_bytes=16 << 20,
+              reg_ttl_s=3, device=cuda)
+    a = FleetServingServer(hub.hostport, params, tag="cudadrain", **kw)
+    b = FleetServingServer(hub.hostport, params, tag="cudadrain", **kw)
+    a.start()
+    b.start()
+    in_step, events = threading.Event(), []
+    armed = {"on": False, "inflight": False}
+    real_step = eng_mod.decode_step
+
+    def slow_step(*args, **kwargs):
+        out = real_step(*args, **kwargs)  # queued on the engine's stream
+        if armed["on"] and threading.current_thread() is a.engine._thread:
+            armed["inflight"] = True
+            in_step.set()
+            time.sleep(0.05)  # the step's device work is still in flight
+            armed["inflight"] = False
+        return out
+
+    monkeypatch.setattr(eng_mod, "decode_step", slow_step)
+    for name in ("freeze", "export_session"):
+        inner = getattr(a.manager, name)
+
+        def traced(sess, _inner=inner, _name=name):
+            events.append((_name, armed["inflight"]))
+            return _inner(sess)
+
+        monkeypatch.setattr(a.manager, name, traced)
+    c = ServingFleetClient(hub.hostport, tag="cudadrain")
+    try:
+        c.router.refresh(force=True)
+        keys, i = [], 0
+        while len(keys) < 3:
+            if c.router.route(f"cd-{i}") == a.addr:
+                keys.append(f"cd-{i}")
+            i += 1
+        prompts = [_SERVE_PROMPTS[j] for j in (0, 3, 4)]
+        streams = [c.open(p, 96, session_key=k)
+                   for k, p in zip(keys, prompts)]
+        for ts in streams:
+            while len(ts.tokens) < 3:
+                ts.read_token(timeout_ms=30000)
+        readers = [threading.Thread(target=lambda ts=ts: list(ts))
+                   for ts in streams]
+        for t in readers:
+            t.start()
+        armed["on"] = True
+        assert in_step.wait(30)
+        moved = a.drain()
+        for t in readers:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        assert moved == 3
+        assert ("freeze", True) in events, events
+        assert all(not inflight for name, inflight in events
+                   if name == "export_session"), events
+        for ts, p in zip(streams, prompts):
+            assert ts.tokens == decode_serial(params, p, 96, 256, lanes=4)
+            assert ts.resumes == 1 and ts.addr == b.addr
+    finally:
+        c.close()
+        for srv in (a, b):
+            srv.stop()
+        clear_registry()
+        hub.stop()

@@ -57,13 +57,25 @@ def test_every_module_imports_with_jax_and_brpc_tpu_blocked():
         "assert 'brpc_tpu_torch.runtime.param_server' in names\n"
         "assert 'brpc_tpu_torch.models.tensor_service' in names\n"
         "assert 'brpc_tpu_torch.ops.ring_attention' in names\n"
+        "for n in ('serving.router', 'serving.fleet',\n"
+        "          'observability.fleet_view'):\n"
+        "    assert 'brpc_tpu_torch.' + n in names, n\n"
+        "from brpc_tpu_torch.serving import (FleetServingServer,\n"
+        "    FleetTokenStream, ServingFleetClient, ServingRouter)\n"
+        "from brpc_tpu_torch.fleet import FleetObserver\n"
+        "from brpc_tpu_torch.observability import (RpczDisabled,\n"
+        "    dump_prometheus, dump_rpcz, rpcz_set_sample_1_in_n)\n"
+        "from brpc_tpu_torch.observability.metrics import (dump_fibers,\n"
+        "    dump_ici)\n"
+        "from brpc_tpu_torch.observability.tracing import find_trace\n"
+        "from brpc_tpu_torch.runtime.native import E_DRAINING\n"
         "assert not any(m.split('.')[0] in ('jax', 'brpc_tpu')\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print(len(names))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 22
+    assert int(r.stdout.split()[-1]) >= 53
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
@@ -109,6 +121,22 @@ def test_slice_two_entry_points_default_to_cuda(entry):
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
+
+
+def test_fleet_serving_server_defaults_to_cuda_and_raises_without_it():
+    """A serving fleet member runs its engine on the card unless told
+    otherwise, and raises before it opens a server or an arena."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device resolves")
+    from brpc_tpu_torch.runtime import native
+    from brpc_tpu_torch.serving import FleetServingServer
+
+    live = len(native._LIVE_SERVERS)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FleetServingServer("127.0.0.1:1")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FleetServingServer("127.0.0.1:1", role="prefill", device="cuda")
+    assert len(native._LIVE_SERVERS) == live
 
 
 def test_cpu_tensors_never_build_or_load_the_kernels():
