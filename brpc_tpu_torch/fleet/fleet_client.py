@@ -57,13 +57,18 @@ class FleetClient:
     """Scatter/gather parameter access across a registered shard fleet.
     Pulled tensors land on ``device`` (default CUDA; raises when CUDA is
     absent). ``arena_bytes`` sizes each shard client's arena, which must
-    hold the largest quantized push group ``window`` times over."""
+    hold the largest quantized push group ``window`` times over.
+    ``tenant`` is stamped on every shard client's calls (the servers'
+    per-tenant quota key). ``oneside=True`` reads each shard's published
+    window where it maps (same host) and its Meta advertises one; other
+    shards stay on the RPC path, shard by shard."""
 
     def __init__(self, registry_hostport: str, tag: str = "param",
                  window: int = 4, arena_bytes: int = 64 << 20,
                  device=None, op_deadline_s: float = 15.0,
                  overrides: Optional[Dict[str, str]] = None,
-                 codec: Optional[str] = None):
+                 codec: Optional[str] = None, tenant: str = "",
+                 oneside: bool = False):
         self._registry = registry_hostport
         self._tag = tag
         self.window = window
@@ -77,6 +82,13 @@ class FleetClient:
         # some not) serves each stream in the best format that shard
         # speaks, raw included.
         self._codec = codec
+        # Overload protection: every shard client stamps this tenant id;
+        # control calls ride the HIGH lane, pulls and pushes BULK (the
+        # per-method lanes live in ParameterClient).
+        self._tenant = tenant
+        # One-sided reads, routed per shard by locality: each shard's
+        # client maps that server's window only where it can.
+        self._oneside = oneside
         self._mu = threading.Lock()
         self._clients: Dict[str, ParameterClient] = {}
         self._map: Optional[ShardMap] = None
@@ -149,7 +161,9 @@ class FleetClient:
             if pc is None:
                 pc = ParameterClient(f"tpu://{addr}",
                                      TensorArena(self._arena_bytes),
-                                     codec=self._codec, device=self._device)
+                                     codec=self._codec, tenant=self._tenant,
+                                     device=self._device,
+                                     oneside=self._oneside)
                 self._clients[addr] = pc
             return pc
 

@@ -113,6 +113,11 @@ class SpanHandle:
     def set_error(self, code: int) -> None:
         self.error_code = code
 
+    @property
+    def trace_hex(self) -> str:
+        """The trace id as /rpcz queries take it (``?trace=<hex>``)."""
+        return f"{self.trace_id:016x}"
+
 
 @contextlib.contextmanager
 def trace_span(name: str, *, server_side: bool = False

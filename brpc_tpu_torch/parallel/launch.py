@@ -17,10 +17,13 @@ import os
 import pickle
 import tempfile
 import time
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as torch_mp
+
+from brpc_tpu_torch.utils.device import resolve_device
 
 
 def _backend(device_type: str) -> str:
@@ -49,13 +52,17 @@ def _rank_main(rank, world, work_dir, device_type, fn, args):
         pickle.dump(out, f)
 
 
-def run_ranks(n: int, fn, args=(), *, device_type: str = "cpu",
+def run_ranks(n: int, fn, args=(), *, device_type: Optional[str] = None,
               timeout_s: float = 120.0) -> list:
     """``fn(*args)`` on n spawned ranks of one process group; returns the
     results (picklable) in rank order. ``fn`` must be importable by name.
+    ``device_type`` is "cuda" (the default: one card per rank, NCCL;
+    raises when CUDA is not available) or "cpu" (gloo).
     A rank that raises ends the run: ``torch.multiprocessing`` stops the
     others and raises ``ProcessRaisedException`` with its traceback. Ranks
     still running at the timeout are killed and RuntimeError is raised."""
+    if device_type is None:
+        device_type = resolve_device(None).type
     _backend(device_type)
     if device_type == "cuda" and torch.cuda.device_count() < n:
         raise RuntimeError(f"{n} ranks need {n} CUDA cards, "

@@ -3,7 +3,9 @@
 The JAX package builds a single-controller ``jax.sharding.Mesh`` over all
 devices; the port runs one process per rank (PyTorch's idiom) and builds a
 ``torch.distributed.device_mesh.DeviceMesh`` over the initialised process
-group, whose dimensions carry the same roles:
+group, whose dimensions carry the same roles (``replicated`` and
+``sharded_on`` give the ``torch.distributed.tensor`` placements that stand
+for the JAX package's ``NamedSharding`` specs):
 
 - ``client`` — data-parallel fan-in of request shards (many client
   connections / ParallelChannel sub-calls).
@@ -23,6 +25,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import Replicate, Shard
 
 CLIENT_AXIS = "client"
 SHARD_AXIS = "shard"
@@ -67,3 +70,17 @@ def ring_mesh() -> DeviceMesh:
     device_type = _group_device_type()
     return DeviceMesh(device_type, torch.arange(dist.get_world_size()),
                       mesh_dim_names=(SHARD_AXIS,))
+
+
+def replicated(mesh: DeviceMesh) -> list:
+    """Placements that replicate a tensor over every mesh dimension."""
+    return [Replicate()] * mesh.ndim
+
+
+def sharded_on(mesh: DeviceMesh, axis: str, dim: int = 0) -> list:
+    """Placements that split tensor dimension ``dim`` over the mesh
+    dimension named ``axis`` and replicate over the others."""
+    names = mesh.mesh_dim_names or ()
+    if axis not in names:
+        raise ValueError(f"mesh has no dimension {axis!r} (it has {names})")
+    return [Shard(dim) if n == axis else Replicate() for n in names]

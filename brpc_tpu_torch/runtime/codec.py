@@ -37,6 +37,7 @@ CODEC_INT8 = 1
 CODEC_FP8E4M3 = 2
 
 _NAME_TO_ID = {"int8": CODEC_INT8, "fp8e4m3": CODEC_FP8E4M3}
+_ID_TO_NAME = {v: k for k, v in _NAME_TO_ID.items()}
 
 DEFAULT_BLOCK = 256       # 4/256 = 1.56% scale overhead on the wire
 MIN_QUANT_BYTES = 4096    # smaller tensors ride raw: savings < header noise
@@ -52,6 +53,11 @@ def codec_id(name: str) -> Optional[int]:
     return _NAME_TO_ID.get(name)
 
 
+def codec_name(cid: int) -> Optional[str]:
+    """The codec a wire id names (None for raw or an unknown id)."""
+    return _ID_TO_NAME.get(cid)
+
+
 def choose(requested: Optional[str], advertised) -> Optional[str]:
     """Per-peer negotiation: the requested codec only if the peer
     advertised it AND this build supports it; else raw (None)."""
@@ -62,12 +68,12 @@ def choose(requested: Optional[str], advertised) -> Optional[str]:
     return None
 
 
-def eligible(x, min_bytes: int = MIN_QUANT_BYTES) -> bool:
+def eligible(host, min_bytes: int = MIN_QUANT_BYTES) -> bool:
     """Per-tensor eligibility: fp32 payloads above the size floor. Reads
     dtype and size only, so a device tensor is never copied to decide."""
-    if isinstance(x, torch.Tensor):
-        return x.dtype == torch.float32 and x.numel() * 4 >= min_bytes
-    return x.dtype == np.float32 and x.nbytes >= min_bytes
+    if isinstance(host, torch.Tensor):
+        return host.dtype == torch.float32 and host.numel() * 4 >= min_bytes
+    return host.dtype == np.float32 and host.nbytes >= min_bytes
 
 
 def _f32_to_e4m3(y: np.ndarray) -> np.ndarray:
@@ -89,10 +95,10 @@ class Encoded:
     ``[scales][codes]`` uint8 array, ``header`` the metadata prefix."""
 
     __slots__ = ("wire", "header", "codec", "block", "logical_bytes",
-                 "_scales", "_q", "_shape")
+                 "_scales", "_q", "_shape", "_dtype")
 
     def __init__(self, wire, header, codec, block, logical_bytes,
-                 scales, q, shape):
+                 scales, q, shape, dtype):
         self.wire = wire
         self.header = header
         self.codec = codec
@@ -101,6 +107,7 @@ class Encoded:
         self._scales = scales
         self._q = q
         self._shape = shape
+        self._dtype = dtype
 
     @property
     def wire_bytes(self) -> int:
@@ -171,7 +178,7 @@ def encode(host: np.ndarray, codec: str, block: int = DEFAULT_BLOCK,
                           "shape": list(host.shape),
                           "codec": codec, "block": block})
     return Encoded(wire, header, codec, block, int(host.nbytes),
-                   scales, q, host.shape)
+                   scales, q, host.shape, host.dtype)
 
 
 def _dequant_flat(codec: str, q, scales, block: int) -> np.ndarray:
@@ -239,6 +246,14 @@ class QuantizedView:
         self.n = int(np.prod(self.shape, dtype=np.int64))
         self.nbytes = self.n * self.dtype.itemsize  # logical bytes
         self.wire_nbytes = int(self.q.nbytes + self.scales.nbytes)
+
+    def dequantize(self) -> np.ndarray:
+        """The plain host decode into a fresh array of the header's dtype
+        (consuming it detaches from the sender's pages). The server widens
+        on the device with the dequantize kernel instead."""
+        flat = _dequant_flat(self.codec, self.q, self.scales, self.block)
+        out = flat.reshape(self.shape)
+        return out if self.dtype == np.float32 else out.astype(self.dtype)
 
 
 def error_bound(meta: dict, scales: np.ndarray) -> np.ndarray:

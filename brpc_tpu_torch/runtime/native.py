@@ -2,10 +2,12 @@
 
 The port's own copy of the binding its planes use: the native
 ``Server``/``Channel`` objects (byte services, the echo service, admission
-settings), ``RpcError`` and the transport error codes, the ambient QoS
-scope and the request deadline, the credit-windowed ``Stream`` the serving
-plane's token streams ride, the ``/sessionz`` provider slot, the HTTP
-progressive-response fallback, and ``lib()``, which loads — building on
+settings and the per-tenant table, TLS, the gRPC client protocol),
+``inject_latency`` and the loopback echo benchmarks, ``RpcError`` and the
+transport error codes, the ambient QoS scope and the request deadline, the
+credit-windowed ``Stream`` the serving plane's token streams ride, the
+``/sessionz`` provider slot, the HTTP progressive-response fallback, and
+``lib()``, which loads — building on
 demand — a ``libbrpc_tpu.so`` that links libstdc++ dynamically, as torch
 needs. Handlers run on the native side's dedicated callback pthreads, never
 on a fiber (ctypes pairs its GIL state on one OS thread).
@@ -41,6 +43,7 @@ import contextlib
 import ctypes
 import errno
 import glob
+import json
 import os
 import re
 import shutil
@@ -338,11 +341,16 @@ def _load() -> ctypes.CDLL:
             "the next process rebuild it")
     L.tbrpc_server_create.restype = ctypes.c_void_p
     L.tbrpc_server_start.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    L.tbrpc_server_start_tls.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p]
     L.tbrpc_server_stop.argtypes = [ctypes.c_void_p]
     L.tbrpc_server_destroy.argtypes = [ctypes.c_void_p]
     L.tbrpc_channel_create.restype = ctypes.c_void_p
     L.tbrpc_channel_create.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_int]
+    L.tbrpc_channel_create_ex.restype = ctypes.c_void_p
+    L.tbrpc_channel_create_ex.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
     L.tbrpc_channel_destroy.argtypes = [ctypes.c_void_p]
     L.tbrpc_call.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p,
@@ -354,6 +362,19 @@ def _load() -> ctypes.CDLL:
     L.tbrpc_alloc.restype = ctypes.c_void_p
     L.tbrpc_alloc.argtypes = [ctypes.c_size_t]
     L.tbrpc_free.argtypes = [ctypes.c_void_p]
+    # Loopback echo benchmarks (the native client and server, no Python
+    # in the loop).
+    L.tbrpc_bench_echo_throughput.restype = ctypes.c_double
+    L.tbrpc_bench_echo_throughput.argtypes = [
+        ctypes.c_size_t, ctypes.c_int, ctypes.c_int]
+    L.tbrpc_bench_echo_qps.restype = ctypes.c_double
+    L.tbrpc_bench_echo_qps.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_double)]
+    L.tbrpc_bench_echo_ex.restype = ctypes.c_double
+    L.tbrpc_bench_echo_ex.argtypes = [
+        ctypes.c_size_t, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_double),
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double)]
     # ---- observability: metrics + tracing (capi.h) ----
     L.tbrpc_var_adder_create.restype = ctypes.c_void_p
     L.tbrpc_var_adder_create.argtypes = [ctypes.c_char_p]
@@ -444,6 +465,11 @@ def _load() -> ctypes.CDLL:
     L.tbrpc_server_set_tenant_quota.restype = ctypes.c_int
     L.tbrpc_server_set_tenant_quota.argtypes = [
         ctypes.c_void_p, ctypes.c_int32]
+    L.tbrpc_server_tenantz_json.restype = ctypes.c_int64
+    L.tbrpc_server_tenantz_json.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t]
+    L.tbrpc_debug_inject_latency.restype = ctypes.c_int
+    L.tbrpc_debug_inject_latency.argtypes = [ctypes.c_char_p, ctypes.c_int64]
     # Streaming RPC: credit-windowed message streams, tcp and tpu://.
     L.tbrpc_stream_accept.restype = ctypes.c_int64
     L.tbrpc_stream_accept.argtypes = [ctypes.c_int64]
@@ -501,6 +527,14 @@ def deadline_remaining_ms() -> Optional[int]:
     no deadline is in scope; 0 means expired."""
     left = lib().tbrpc_deadline_remaining_ms()
     return None if left < 0 else int(left)
+
+
+def inject_latency(service: str, ms: int) -> None:
+    """For tests: every admitted request to ``service`` holds its gate
+    slot for ``ms`` before the handler runs (deterministic queueing for
+    the overload tests). ``ms <= 0`` clears; ``service=""`` clears every
+    injection."""
+    lib().tbrpc_debug_inject_latency(service.encode(), ms)
 
 
 def dump_ici() -> str:
@@ -593,6 +627,18 @@ class Server:
         if self._L.tbrpc_server_set_tenant_quota(self._h, max_inflight) != 0:
             raise RuntimeError("set_tenant_quota failed")
 
+    def tenantz(self) -> dict:
+        """The per-tenant admission table, ``{"quota": N, "tenants":
+        [{name, admitted, shed, inflight, quota}, ...]}`` — the document
+        ``/tenantz?format=json`` serves."""
+        cap = 1 << 16
+        while True:
+            buf = ctypes.create_string_buffer(cap)
+            need = self._L.tbrpc_server_tenantz_json(self._h, buf, cap)
+            if need < cap:
+                return json.loads(buf.value.decode())
+            cap = int(need) + 1
+
     def add_service(self, name: str, handler: Handler) -> None:
         """Host a byte service: ``handler(method, request, attachment)``
         runs on a callback-pool thread for every ``name/<method>`` call."""
@@ -627,10 +673,19 @@ class Server:
                 self._h, name.encode(), cb, None) != 0:
             raise RuntimeError(f"add_service({name}) failed")
 
-    def start(self, addr: str = "127.0.0.1:0") -> int:
+    def start(self, addr: str = "127.0.0.1:0", *, ssl_cert: str = "",
+              ssl_key: str = "") -> int:
+        """Listen on ``addr``; returns the port. ``ssl_cert`` and
+        ``ssl_key`` (PEM files) make the port also accept TLS — sniffed,
+        so plaintext clients keep working; ALPN offers h2 for gRPC over
+        TLS."""
         if not self._h:
             raise RuntimeError("server is closed")
-        port = self._L.tbrpc_server_start(self._h, addr.encode())
+        if ssl_cert or ssl_key:
+            port = self._L.tbrpc_server_start_tls(
+                self._h, addr.encode(), ssl_cert.encode(), ssl_key.encode())
+        else:
+            port = self._L.tbrpc_server_start(self._h, addr.encode())
         if port < 0:
             raise RuntimeError(f"server start on {addr} failed")
         self.port = port
@@ -654,13 +709,23 @@ class Server:
             pass
 
 
-class Channel:
-    """Client stub to one server ("ip:port") for byte RPCs."""
+# Wire protocols a Channel speaks (native/trpc's protocol ids).
+_PROTOCOLS = {"tstd": 0, "grpc": 5}
 
-    def __init__(self, addr: str, timeout_ms: int = 1000, max_retry: int = 3):
+
+class Channel:
+    """Client stub to one server ("ip:port", or "tls://ip:port") for byte
+    RPCs. ``protocol`` is ``"tstd"`` (the native framing) or ``"grpc"``
+    (gRPC over HTTP/2: dials any standard gRPC server)."""
+
+    def __init__(self, addr: str, timeout_ms: int = 1000, max_retry: int = 3,
+                 protocol: str = "tstd"):
+        if protocol not in _PROTOCOLS:
+            raise ValueError(f"unknown protocol {protocol!r}; choose from "
+                             f"{sorted(_PROTOCOLS)}")
         self._L = lib()
-        self._h = self._L.tbrpc_channel_create(addr.encode(), timeout_ms,
-                                               max_retry)
+        self._h = self._L.tbrpc_channel_create_ex(
+            addr.encode(), timeout_ms, max_retry, _PROTOCOLS[protocol])
         if not self._h:
             raise RuntimeError(f"channel init to {addr} failed")
         _LIVE_CHANNELS.add(self)
@@ -907,3 +972,40 @@ def progressive_write(progressive_id: int, data: bytes) -> bool:
 def progressive_close(progressive_id: int) -> None:
     """Send the terminal chunk; the connection closes after it drains."""
     lib().tbrpc_progressive_close(progressive_id)
+
+
+# ---------------------------------------------------------------------------
+# Loopback echo benchmarks: a native echo server and native clients in this
+# process, no Python in the loop.
+# ---------------------------------------------------------------------------
+
+
+def bench_echo_throughput(payload_size: int, seconds: int = 2,
+                          concurrency: int = 4) -> float:
+    """One-way payload bytes a second through a loopback echo server."""
+    return lib().tbrpc_bench_echo_throughput(payload_size, seconds,
+                                             concurrency)
+
+
+def bench_echo_qps(seconds: int = 2, concurrency: int = 8):
+    """(calls a second, p99 in us) of small-payload loopback echo."""
+    p99 = ctypes.c_double()
+    qps = lib().tbrpc_bench_echo_qps(seconds, concurrency, ctypes.byref(p99))
+    return qps, p99.value
+
+
+def bench_echo_ex(payload_size: int, seconds: int = 2, concurrency: int = 4,
+                  transport: str = "tcp", conn_type: str = "single"):
+    """One echo point -> (one-way bytes/s, calls/s, p50 us, p99 us).
+    ``transport`` is "tcp" or "tpu" (the shared-memory transport over the
+    loopback control channel); ``conn_type`` "single", "pooled" or
+    "short"."""
+    qps = ctypes.c_double()
+    p50 = ctypes.c_double()
+    p99 = ctypes.c_double()
+    bps = lib().tbrpc_bench_echo_ex(
+        payload_size, seconds, concurrency,
+        {"tcp": 0, "tpu": 1}[transport],
+        {"single": 0, "pooled": 1, "short": 2}[conn_type],
+        ctypes.byref(qps), ctypes.byref(p50), ctypes.byref(p99))
+    return bps, qps.value, p50.value, p99.value

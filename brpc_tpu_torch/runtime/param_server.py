@@ -68,6 +68,9 @@ E_NO_SUCH = 2040
 E_MOVED = 2041
 E_MIGRATING = 2042
 E_EXISTS = 2043  # install over a serving parameter
+# A handler's generic failure: what a quantized push to a server that
+# predates the codec dies with (its update math meets the flat codes).
+TRPC_EINTERNAL = native.TRPC_EINTERNAL
 
 _METHODS = ("Meta", "Epoch", "Pull", "PullQ", "Push", "PushQ", "Oneside",
             "Handoff", "Install", "Retire", "Commit")
@@ -203,16 +206,24 @@ class ParameterServer:
     momenta — or a :class:`PSState` from :func:`state_from_numpy`, used as
     it is (its tensors' device).
 
-    ``name`` adds a per-server version-lag gauge. ``oneside=True``
-    publishes every committed version into a seqlock-stamped window of
-    the service arena, so a same-host client reads it without an RPC;
-    ``oneside_codec`` (a codec this server serves) publishes eligible
-    tensors in that wire form instead of raw.
+    ``name`` adds a per-server version-lag gauge. ``codecs`` lists the
+    quantized wire codecs this server encodes pulls with and decodes
+    pushes from, advertised in Meta (default: every codec this build
+    supports; ``()`` turns the quantized wire off, and every call rides
+    raw). ``oneside=True`` publishes every committed version into a
+    seqlock-stamped window of the service arena, so a same-host client
+    reads it without an RPC; ``oneside_codec`` (a codec this server
+    serves) publishes eligible tensors in that wire form instead of raw.
+
+    Parameters may be fp32, fp16 or bf16 (the update keeps their dtype;
+    a pushed gradient is cast to it). fp16 crosses the wire as ``<f2``;
+    bf16 has no numpy dtype, so a bf16 server takes no remote pushes.
     """
 
     def __init__(self, params, lr: float = 0.01, momentum: float = 0.9,
                  arena: Optional[TensorArena] = None, device=None,
-                 name: Optional[str] = None, oneside: bool = False,
+                 name: Optional[str] = None, codecs=None,
+                 oneside: bool = False,
                  oneside_codec: Optional[str] = None):
         if isinstance(params, PSState):
             state = params
@@ -247,8 +258,12 @@ class ParameterServer:
         self._handoff_dest: Dict[str, str] = {}  # frozen name -> dest addr
         self._moved: Dict[str, str] = {}         # retired name -> dest addr
         # Codecs this server encodes pulls with / decodes pushes from,
-        # advertised in Meta.
-        self._codecs = tuple(codec_mod.supported_codecs())
+        # advertised in Meta: the caller's, intersected with what this
+        # build decodes (caller order kept) — advertising one it cannot
+        # decode would let a client negotiate pushes that then fail.
+        supported = codec_mod.supported_codecs()
+        self._codecs = tuple(supported if codecs is None
+                             else (c for c in codecs if c in supported))
         # Quantize once, serve many: name -> {codec: (version, meta,
         # wire uint8, logical bytes)}, replaced when the version moves.
         self._enc_cache: Dict[str, Dict[str, tuple]] = {}
@@ -768,14 +783,24 @@ class ParameterClient:
     ``device`` is where pulled tensors land (default CUDA; raises when
     CUDA is absent). ``codec="int8"`` (or ``"fp8e4m3"``) asks for the
     quantized wire, engaged only after the server advertises it in Meta;
-    pushes quantize with error feedback. ``oneside=True`` reads committed
-    versions straight from the server's published window once its Meta
-    advertises one and the window maps (same host), and takes the RPC
-    path transparently otherwise."""
+    pushes quantize with error feedback. ``tenant`` is the id this
+    client's requests carry (the server's per-tenant quota key; "" falls
+    back to the peer's ip there), stamped only once the server's Meta
+    advertised QoS. ``oneside=True`` reads committed versions straight
+    from the server's published window once its Meta advertises one and
+    the window maps (same host), and takes the RPC path transparently
+    otherwise; ``pull``/``pull_all`` take ``oneside`` per call too.
+
+    Every advertisement heals itself: a server rolled back to a build
+    without QoS, without a codec or without PushQ fails the call the
+    client negotiated for; the client then re-reads Meta once, retries
+    the call the way the server now speaks when the advertisement is
+    gone, and keeps both the error and the negotiation when it is not
+    (a genuine fault must not degrade the wire)."""
 
     def __init__(self, addr: str, arena: Optional[TensorArena] = None,
-                 codec: Optional[str] = None, device=None,
-                 oneside: bool = False):
+                 codec: Optional[str] = None, tenant: str = "",
+                 device=None, oneside: bool = False):
         self.device = resolve_device(device)
         self.addr = addr
         self.channel = TensorChannel(addr, arena)
@@ -786,9 +811,13 @@ class ParameterClient:
         self._srv_codecs: Optional[tuple] = None  # unknown until Meta
         self._srv_pushq = False
         self._ef = codec_mod.ErrorFeedback()
+        # Overload protection: the tenant id stamped on this client's
+        # calls, and the shed-storm pacer its overload answers feed.
+        self._tenant = tenant
         self.pacer = OverloadPacer()
         # QoS negotiation: None until the first Meta; True when the
-        # server advertised "qos": 1.
+        # server advertised "qos": 1 (a parser that predates the QoS
+        # fields would read them as a corrupt service name).
         self._srv_qos: Optional[bool] = None
         # One-sided reads: _oneside_reader is None until tried, False once
         # this client is parked on the RPC path for good (off-host,
@@ -812,13 +841,64 @@ class ParameterClient:
                 pass  # unknown stays unknown: this call rides unstamped
         if not self._srv_qos:
             return contextlib.nullcontext()
-        return native.qos(priority)
+        return native.qos(priority, self._tenant)
 
     def _qos_high(self):
         return self._qos(native.PRIORITY_HIGH)
 
     def _qos_bulk(self):
         return self._qos(native.PRIORITY_BULK)
+
+    def _reread_meta(self) -> bool:
+        """Re-read the advertisement (a full Meta: after a restart the
+        schema epoch may match and the cache would skip it); False when
+        the fetch failed, which keeps the caller's original error."""
+        self._srv_codecs = None
+        try:
+            self.meta()
+        except native.RpcError:
+            return False
+        return True
+
+    def _qos_failed(self, e: "native.RpcError") -> bool:
+        """A stamped call killed at parse time (the connection dies:
+        EEOF/EFAILEDSOCKET/ECONNECT) may mean a server rolled back to a
+        build without QoS. Re-read Meta once (it rides unstamped); True =
+        QoS is no longer advertised and the caller retries unstamped."""
+        if not self._srv_qos or e.code not in native.TRANSPORT_DEAD:
+            return False
+        self._srv_qos = None
+        return self._reread_meta() and not self._srv_qos
+
+    def _codec_push_failed(self, e: "native.RpcError") -> None:
+        """A quantized push the server cannot decode: E_UNDECODABLE drops
+        the advertisement (the next call renegotiates); a generic internal
+        error — what a build that predates the codec answers — re-reads
+        it once, which heals only when the codec is gone."""
+        if e.code == E_UNDECODABLE:
+            self._srv_codecs = None
+            return
+        if e.code == TRPC_EINTERNAL and self.negotiated_codec() is not None:
+            self._reread_meta()
+
+    def _pushq_failed(self, e: "native.RpcError") -> bool:
+        """A grouped push that died E_NO_SUCH may mean a server without
+        the PushQ method (per-name misses ride the result manifest). Re-read
+        Meta once; True = PushQ is gone and the caller retries per tensor
+        (still quantized if the codec survived)."""
+        if e.code != E_NO_SUCH or not self._srv_pushq:
+            return False
+        return self._reread_meta() and not self._srv_pushq
+
+    def _codec_pull_failed(self, e: "native.RpcError") -> bool:
+        """A negotiated pull that died E_NO_SUCH may mean a server that
+        predates the codec (it reads ``name\\x00codec`` as an unknown name
+        and has no PullQ). Re-read Meta once; True = the codec is no
+        longer advertised and the caller retries raw. A genuine miss
+        re-advertises the same codec and keeps its error."""
+        if e.code != E_NO_SUCH or self.negotiated_codec() is None:
+            return False
+        return self._reread_meta() and self.negotiated_codec() is None
 
     def meta(self) -> dict:
         payload, _ = self.channel.call("ParamService/Meta")
@@ -878,6 +958,9 @@ class ParameterClient:
             r = None
         self._oneside_reader = r if r is not None else False
         return r
+
+    def _oneside_enabled(self, oneside: Optional[bool]) -> bool:
+        return self._oneside if oneside is None else bool(oneside)
 
     def _drop_oneside_reader(self) -> None:
         r = self._oneside_reader
@@ -942,11 +1025,12 @@ class ParameterClient:
 
         return enc
 
-    def pull(self, name: str, device=None):
-        """-> (version, tensor on the client's device). A client made with
-        ``oneside=True`` reads the published window first."""
+    def pull(self, name: str, device=None, oneside: Optional[bool] = None):
+        """-> (version, tensor on the client's device). One-sided (the
+        constructor's flag, or ``oneside`` for this call) reads the
+        published window first."""
         dev = self._dev(device)
-        if self._oneside:
+        if self._oneside_enabled(oneside):
             got = self._oneside_read(name, dev)
             if got is not None:
                 return got
@@ -958,7 +1042,13 @@ class ParameterClient:
                     device=dev, note_name=name)
         except native.RpcError as e:
             self.pacer.note(e)
-            raise
+            if not (self._codec_pull_failed(e) or self._qos_failed(e)):
+                raise
+            # Renegotiated: the retry is the wire that build speaks.
+            with self._qos_bulk():
+                rest, t = self.channel.pull_device(
+                    "ParamService/Pull", request=self._pull_request(name),
+                    device=dev, note_name=name)
         self.pacer.clear()
         return int(rest.decode()), t
 
@@ -972,7 +1062,13 @@ class ParameterClient:
                     encoder=self._grad_encoder(name))
         except native.RpcError as e:
             self.pacer.note(e)
-            raise
+            self._codec_push_failed(e)
+            if not self._qos_failed(e):
+                raise
+            # A build without QoS: retry once, unstamped.
+            payload = self.channel.push_device(
+                "ParamService/Push", grad, request=name.encode(),
+                encoder=self._grad_encoder(name))
         self.pacer.clear()
         return int(payload.decode())
 
@@ -1011,15 +1107,18 @@ class ParameterClient:
     # ---- pipelined multi-tensor hot path (PipelineWindow) ----
 
     def pull_all(self, names=None, device=None, window: int = 4,
-                 group: int = 8) -> Dict[str, tuple]:
+                 group: int = 8,
+                 oneside: Optional[bool] = None) -> Dict[str, tuple]:
         """Pull many parameters through one bounded pipeline window ->
         ``{name: (version, tensor)}``; ``names=None`` pulls every name
         Meta lists.
 
-        One-sided first (a client made with ``oneside=True``): every name
-        the mapped window serves skips the RPC plane; the rest ride the RPC
-        path. Raw: one Pull RPC per tensor, each copied to the device
-        straight from its response view. Negotiated codec: eligible names
+        One-sided first (the constructor's flag, or ``oneside`` for this
+        call): every name the mapped window serves skips the RPC plane
+        (an int8 publication widens through the dequantize kernel on a
+        CUDA device); the rest ride the RPC path. Raw: one Pull RPC per
+        tensor, each copied to the device straight from its response
+        view. Negotiated codec: eligible names
         ride ``PullQ`` in groups of ``group`` per RPC (codes cross, the
         dequantize kernel widens on the device); names Meta predicts
         ineligible stay per-tensor raw in the same window.
@@ -1033,7 +1132,7 @@ class ParameterClient:
         names = list(names)
         m = _metrics()
         out: Dict[str, tuple] = {}
-        if self._oneside and names:
+        if self._oneside_enabled(oneside) and names:
             rest = []
             for n in names:
                 got = self._oneside_read(n, dev)
@@ -1162,6 +1261,23 @@ class ParameterClient:
                                tag=tuple(g))
         except native.RpcError as e:
             self.pacer.note(e)
+            if self._codec_pull_failed(e):
+                # A build without the codec (no PullQ): renegotiated to
+                # raw — re-pull the stragglers per tensor and merge.
+                rem = [n for n in names if n not in out]
+                try:
+                    out.update(self.pull_all(rem, device=dev, window=window,
+                                             group=group, oneside=False))
+                except PartialPullError as pe:
+                    raise PartialPullError(pe, {**out, **pe.partial},
+                                           pe.missing) from pe
+                except native.RpcError as e2:
+                    if out:
+                        raise PartialPullError(
+                            e2, dict(out),
+                            [n for n in rem if n not in out]) from e2
+                    raise
+                return out
             if out:
                 raise PartialPullError(
                     e, dict(out),
@@ -1182,7 +1298,9 @@ class ParameterClient:
         cancel the others in flight (a cancelled push may have been
         applied, and re-sending it would apply it twice): the window
         drains, and :class:`PartialPushError` then carries the confirmed
-        versions and the refused names.
+        versions and the refused names. A group refused because the server
+        has no PushQ method (it no longer advertises it) is re-sent per
+        tensor, once.
         """
         m = _metrics()
         versions: Dict[str, int] = {}
@@ -1202,8 +1320,12 @@ class ParameterClient:
             else:
                 versions[tag] = int(payload.decode())
 
+        group_errs: List[native.RpcError] = []
+
         def on_error(tag, err):
             self.pacer.note(err)
+            if isinstance(tag, tuple):
+                group_errs.append(err)
             for n in (tag if isinstance(tag, tuple) else (tag,)):
                 per_name_err[n] = err
 
@@ -1258,7 +1380,28 @@ class ParameterClient:
                     e, dict(versions),
                     [n for n in grads if n not in versions]) from e
             raise
+        if group_errs and self._pushq_failed(group_errs[0]):
+            # A build without PushQ: the method is gone, the names are
+            # fine — re-push the unconfirmed ones per tensor and merge.
+            rem = {n: grads[n] for n in grads if n not in versions}
+            try:
+                versions.update(self.push_all(rem, window=window,
+                                              group=group))
+            except PartialPushError as pe:
+                raise PartialPushError(pe, {**versions, **pe.applied},
+                                       pe.unpushed) from pe
+            except native.RpcError as e2:
+                if versions:
+                    raise PartialPushError(
+                        e2, dict(versions),
+                        [n for n in rem if n not in versions]) from e2
+                raise
+            return versions
         if per_name_err:
+            # Per-name refusals (moved mid-reshard, undecodable): the
+            # stale-advertisement heal runs as a per-tensor push's would.
+            for err in per_name_err.values():
+                self._codec_push_failed(err)
             cause = next(iter(per_name_err.values()))
             raise PartialPushError(
                 cause, dict(versions),

@@ -343,14 +343,15 @@ class WirePipe:
     A send stages the device tensor straight into the arena (D2H on the
     sending lane's stream); a recv copies the received bytes onto
     ``device`` (H2D on the receiving lane's stream, complete on return).
-    Its wire is the JAX package's."""
+    Its wire is the JAX package's. ``emulate_wire_gbps`` (benchmarks only)
+    holds every send for its bytes' time on a link of that rate."""
 
     def __init__(self, registry_hostport: str, stage: int, stages: int,
                  tag: str = "pp", listen: str = "127.0.0.1:0",
                  window: int = 4, timeout_s: float = 30.0,
                  arena_bytes: int = 64 << 20,
                  client_arena_bytes: int = 32 << 20, ttl_s: int = 5,
-                 device=None):
+                 emulate_wire_gbps: Optional[float] = None, device=None):
         from brpc_tpu_torch.fleet import registry
         from brpc_tpu_torch.runtime import native
         from brpc_tpu_torch.runtime.tensor import (TensorArena,
@@ -362,6 +363,7 @@ class WirePipe:
         self.tag = tag
         self.timeout_s = timeout_s
         self.window = window
+        self.emulate_wire_gbps = emulate_wire_gbps
         self.device = resolve_device(device)
         self._client_arena_bytes = client_arena_bytes
         self._registry = registry_hostport
@@ -458,6 +460,13 @@ class WirePipe:
         req = json.dumps({"kind": kind, "step": step, "mb": mb}).encode()
         t = (arr.detach().to(torch.float32) if isinstance(arr, torch.Tensor)
              else torch.from_numpy(np.ascontiguousarray(arr, np.float32)))
+        if self.emulate_wire_gbps:
+            # Link emulation for benchmarks: this tensor's bytes cross a
+            # modeled uplink (loopback shared memory runs at memcpy speed,
+            # which no cross-host stage link does). It sleeps on the
+            # sending lane, never in a handler.
+            time.sleep(  # tpulint: allow(py-blocking)
+                t.numel() * 4 / (self.emulate_wire_gbps * 1e9))
         with self._mu:
             self._wins[direction].submit("PipeStage/Ship", array=t,
                                          request=req,

@@ -103,17 +103,22 @@ def _bind_tensor_api(L: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_char_p,
         ctypes.c_void_p, ctypes.c_size_t,
         ctypes.c_void_p, ctypes.c_uint64, ctypes.c_size_t,
-        ctypes.c_void_p, ctypes.c_void_p]
-    L.tbrpc_future_wait.restype = ctypes.c_int
-    L.tbrpc_future_wait.argtypes = [
-        ctypes.c_void_p,
+        _TENSOR_DONE_CB, ctypes.c_void_p]
+    future_outs = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t),
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_int),
         ctypes.c_char_p, ctypes.c_size_t]
+    L.tbrpc_future_wait.restype = ctypes.c_int
+    L.tbrpc_future_wait.argtypes = [ctypes.c_void_p] + future_outs
+    L.tbrpc_future_timed_wait.restype = ctypes.c_int
+    L.tbrpc_future_timed_wait.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64] + future_outs
     L.tbrpc_future_cancel.restype = ctypes.c_int
     L.tbrpc_future_cancel.argtypes = [ctypes.c_void_p]
     L.tbrpc_future_destroy.argtypes = [ctypes.c_void_p]
+    L.tbrpc_async_inflight.restype = ctypes.c_int64
+    L.tbrpc_async_inflight.argtypes = []
     # ---- one-sided tensor reads (published arena windows) ----
     L.tbrpc_oneside_window_create.restype = ctypes.c_void_p
     L.tbrpc_oneside_window_create.argtypes = [
@@ -149,6 +154,25 @@ def _bind_tensor_api(L: ctypes.CDLL) -> ctypes.CDLL:
     L._tensor_api_bound = True
     return L
 
+
+# Completion notification of tbrpc_call_tensor_async: fired on a
+# callback-pool pthread BEFORE the future becomes waitable, with the values
+# a wait would return — ownership stays with the future (the callback frees
+# nothing).
+_TENSOR_DONE_CB = ctypes.CFUNCTYPE(
+    None,
+    ctypes.c_void_p,                    # ctx
+    ctypes.c_int,                       # status (0 = ok)
+    ctypes.c_void_p, ctypes.c_size_t,   # resp
+    ctypes.c_void_p,                    # view handle
+    ctypes.c_void_p, ctypes.c_size_t,   # ratt ptr/len
+    ctypes.c_int,                       # ratt_copied
+    ctypes.c_char_p,                    # err_text
+)
+
+# The notification trampolines of calls in flight: each unanchors itself
+# when it fires, so ctypes never frees one the native side may still call.
+_live_done_cbs: list = []
 
 _TENSOR_CB = ctypes.CFUNCTYPE(
     None,
@@ -691,25 +715,39 @@ def consume_pull_reply(payload: bytes, view: TensorView,
 class TensorFuture:
     """One in-flight async tensor RPC (``TensorChannel.call_async``).
     ``result()`` parks until the response arrives and returns ``(payload,
-    TensorView)``; results are cached on first take."""
+    TensorView)``; results are cached on first take, so repeated calls
+    return the same objects, and the future outlives its channel.
+    ``cancel()`` ends an in-flight RPC with ECANCELED; ``close()`` (or GC)
+    on a never-waited future cancels it and lets the native side release
+    the response exactly once."""
 
-    def __init__(self, L, handle, service_method):
+    def __init__(self, L, handle, service_method, done_cb=None):
         self._L = L
         self._h = handle
         self._method = service_method
+        self._cb = done_cb  # the ctypes trampoline must outlive the RPC
         self._payload = None
         self._view: Optional[TensorView] = None
         self._error: Optional[RpcError] = None
         self._taken = False
 
-    def result(self) -> Tuple[bytes, TensorView]:
-        if not self._taken:
-            self._wait()
+    def done(self) -> bool:
+        """Non-blocking completion probe (a ready result moves into the
+        cache)."""
+        return self._taken or self._poll(0)
+
+    def result(self, timeout_ms: int = -1) -> Tuple[bytes, TensorView]:
+        """Wait for completion -> (payload, view). ``timeout_ms >= 0``
+        raises TimeoutError if the call is still in flight (nothing is
+        consumed: retry later); an RPC failure raises RpcError."""
+        if not self._taken and not self._poll(timeout_ms):
+            raise TimeoutError(
+                f"{self._method}: still in flight after {timeout_ms}ms")
         if self._error is not None:
             raise self._error
         return self._payload, self._view
 
-    def _wait(self) -> None:
+    def _poll(self, timeout_ms: int) -> bool:
         if not self._h:
             raise RuntimeError("future is closed")
         L = self._L
@@ -720,10 +758,16 @@ class TensorFuture:
         ratt_len = ctypes.c_size_t()
         copied = ctypes.c_int()
         errbuf = ctypes.create_string_buffer(256)
-        rc = L.tbrpc_future_wait(
-            self._h, ctypes.byref(resp), ctypes.byref(resp_len),
-            ctypes.byref(view), ctypes.byref(ratt), ctypes.byref(ratt_len),
-            ctypes.byref(copied), errbuf, len(errbuf))
+        outs = (ctypes.byref(resp), ctypes.byref(resp_len),
+                ctypes.byref(view), ctypes.byref(ratt),
+                ctypes.byref(ratt_len), ctypes.byref(copied),
+                errbuf, len(errbuf))
+        if timeout_ms < 0:
+            rc = L.tbrpc_future_wait(self._h, *outs)
+        else:
+            rc = L.tbrpc_future_timed_wait(self._h, timeout_ms, *outs)
+            if rc == -1:
+                return False  # still in flight; nothing consumed
         self._taken = True
         if rc != 0:
             self._error = RpcError(rc, errbuf.value.decode(errors="replace"))
@@ -736,9 +780,11 @@ class TensorFuture:
             self._view = TensorView(L, view.value, ratt.value,
                                     ratt_len.value, bool(copied.value))
         self.close()  # ownership is out; the native box is spent
+        return True
 
     def cancel(self) -> None:
-        """Cancel an in-flight RPC (a later ``result()`` raises ECANCELED)."""
+        """Cancel an in-flight RPC (a later ``result()`` raises ECANCELED);
+        a completed but unconsumed response is released now, once."""
         if self._h and not self._taken:
             self._L.tbrpc_future_cancel(self._h)
 
@@ -747,6 +793,9 @@ class TensorFuture:
         if self._h:
             self._L.tbrpc_future_destroy(self._h)
             self._h = None
+            # The notification trampoline unanchors itself when it fires;
+            # dropping this reference is enough.
+            self._cb = None
 
     def __del__(self):
         try:
@@ -934,20 +983,40 @@ class TensorChannel:
                                    bool(copied.value))
 
     def call_async(self, service_method: str, request: bytes = b"",
-                   att_off: int = 0, att_len: int = 0) -> TensorFuture:
+                   att_off: int = 0, att_len: int = 0,
+                   on_done: Optional[Callable[[int], None]] = None
+                   ) -> TensorFuture:
         """Submit one RPC without blocking. The arena range takes its local
         reference before this returns, so ``arena.free`` any time after
-        submission is safe."""
+        submission is safe. ``on_done(status)`` (optional) fires on a
+        callback-pool pthread before the future becomes waitable — a
+        notification hook; take the result with ``future.result()``, never
+        inside the hook."""
         if not self._h:
             raise RuntimeError("tensor channel is closed")
+        cb = ctypes.cast(None, _TENSOR_DONE_CB)  # NULL: no hook
+        if on_done is not None:
+            def notify(_ctx, status, *_rest):
+                try:
+                    on_done(status)
+                except Exception:  # noqa: BLE001 — a notification hook
+                    pass           # must not unwind into the pool thread
+                finally:
+                    try:
+                        _live_done_cbs.remove(cb)
+                    except ValueError:
+                        pass
+
+            cb = _TENSOR_DONE_CB(notify)
+            _live_done_cbs.append(cb)
         h = self._L.tbrpc_call_tensor_async(
             self._h, service_method.encode(), request, len(request),
             self.arena.handle if att_len else None, att_off, att_len,
-            None, None)
+            cb, None)
         if not h:
             raise RpcError(native.TRPC_EINTERNAL,
                            f"async submit of {service_method} failed")
-        return TensorFuture(self._L, h, service_method)
+        return TensorFuture(self._L, h, service_method, done_cb=cb)
 
     def call(self, service_method: str, array=None, request: bytes = b""
              ) -> Tuple[bytes, Optional[np.ndarray]]:
@@ -955,7 +1024,7 @@ class TensorChannel:
         (or nothing)."""
         off = length = 0
         if array is not None:
-            off, length, host = self.arena.place(array)
+            off, length, host = self.place_with_meta(array)
             request = _encode_meta(host) + request
         try:
             payload, view = self.call_raw(service_method, request, off,
@@ -974,6 +1043,11 @@ class TensorChannel:
             arr = view.ndarray().view(np.dtype(meta["dtype"])).reshape(
                 tuple(meta["shape"]))
             return rest, np.array(arr)  # detach before releasing the view
+
+    def place_with_meta(self, array) -> Tuple[int, int, np.ndarray]:
+        """Stage ``array`` into this channel's arena -> (offset, length,
+        host array whose ``_encode_meta`` header describes the bytes)."""
+        return self.arena.place(array)
 
     def pull_device(self, service_method: str, request: bytes,
                     device: torch.device, note_name: Optional[str] = None):

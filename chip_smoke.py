@@ -15,6 +15,8 @@ checkout. Phases, each fatal on failure:
      tolerances; times at the largest shapes beside the bound and a
      library call where one computes the same function (K2 int8's,
      ``codes.view(nb, block) * scale.view(nb, 1)``, held bit for bit);
+     K1 in fp16 and bf16 at wte (and a ragged and an unaligned shape), bit
+     for bit, timed beside ``torch._fused_sgd_`` on the same dtype;
   3. the parameter-server path: a ParameterServer on the card holding the
      GPT-2 small parameter set (124,439,808 fp32 values, random from
      --seed) serves pulls and int8 pushes over tpu:// to clients in this
@@ -60,7 +62,18 @@ checkout. Phases, each fatal on failure:
      shared-prefix group migrated between paged members (fewer KV bytes
      than its full planes), and a prefill/decode split against a
      colocated pair. Every stream equals decode_serial's on the card, no
-     session stays live on two members, and no kernel of K1-K3 launches.
+     session stays live on two members, and no kernel of K1-K3 launches;
+  9. the parameter server's operator surface at the GPT-2 small
+     parameter set on the card: (a) two tenants under a per-tenant quota
+     of 2 with 20 ms injected per call — a greedy one pulls the whole set
+     int8 with a window of 8 (shed, paced, and complete), a steady one
+     pulls one name in a loop (never shed), tenantz accounts for every
+     call, then both push int8 and the state equals a plain replay; (b) a
+     server with codecs=() serves an int8 client raw; (c) the set in fp16
+     takes two raw push_alls through K1's fp16 kernel, equal to the plain
+     half replay; (d) a 2-shard fleet, one shard publishing raw and one
+     int8, read with FleetClient(oneside=True) equals the RPC pull_alls;
+     (e) host only: a gRPC echo and a tidl_gen stub call over the port.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after.
@@ -302,11 +315,13 @@ def kernels_vs_plain(seed: int, rate: float) -> list:
         log(f"kernels == plain (bit for bit) at {shape}")
     rows = []
     src = {"brpc_fused_momentum": ("brpc_tpu_torch/ops/csrc/fused_update.cu",
-                                   "brpc_tpu/ops/fused_update.py:23"),
+                                   "brpc_tpu/ops/fused_update.py:23",
+                                   "float32"),
            "brpc_dequant_int8": ("brpc_tpu_torch/ops/csrc/quantize.cu",
-                                 "brpc_tpu/ops/quantize.py:32"),
+                                 "brpc_tpu/ops/quantize.py:32", "int8"),
            "brpc_dequant_fp8e4m3": ("brpc_tpu_torch/ops/csrc/quantize.cu",
-                                    "brpc_tpu/ops/quantize.py:32")}
+                                    "brpc_tpu/ops/quantize.py:32",
+                                    "fp8e4m3")}
     for name, t in timing.items():
         log(f"{name} at wte {shapes[0]}: kernel_ms={t['ms']:.4f} "
             f"plain_ms={t['plain_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
@@ -314,10 +329,106 @@ def kernels_vs_plain(seed: int, rate: float) -> list:
             + ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f}"))
         rows.append({"name": name, "ported": True, "route": "cuda",
+                     "dtype": src[name][2],
                      "source": src[name][0],
                      "replaces": src[name][1], "launches": None,
                      "max_abs_err": errs[name], **t})
+    rows += _half_momentum_rows(seed, rate, shapes[0])
     return rows
+
+
+# K1 in half precision: the parameter server holds fp16 parameters in phase
+# 9; bf16 crosses no wire (numpy has no bf16 dtype), so no path runs it and
+# its row is checked here only.
+HALF_K1 = (("float16", "brpc_fused_momentum_f16", True),
+           ("bfloat16", "brpc_fused_momentum_bf16", False))
+
+
+def _half_momentum_rows(seed: int, rate: float, wte: tuple) -> list:
+    """K1 fp16 and bf16 against the plain version, bit for bit, at wte and
+    at a ragged and an unaligned 1-D shape; times at wte beside the bound
+    (10 bytes an element) and ``torch._fused_sgd_`` on the same dtype,
+    whose difference from the plain version is recorded, not required."""
+    import torch
+
+    from brpc_tpu_torch.ops import fused_update as fu
+
+    dev = torch.device("cuda")
+    rows = []
+    for dname, kname, on_path in HALF_K1:
+        dtype = getattr(torch, dname)
+        gen = torch.Generator(device=dev).manual_seed(seed * 31 + 7)
+        err, timing = 0.0, None
+        for shape in (wte, (1000003,), (37, 300)):
+            p, m, g = (torch.randn(shape, generator=gen, device=dev)
+                       .to(dtype) for _ in range(3))
+            for off in (0, 1):  # 1: an unaligned view, the scalar path
+                args = [t.reshape(-1)[off:] if off else t for t in (p, m, g)]
+                kp, km = fu.fused_momentum_update(*args, lr=LR, beta=BETA)
+                rp, rm = fu.momentum_update_reference(*args, lr=LR,
+                                                      beta=BETA)
+                torch.cuda.synchronize()
+                err = max(err, (kp.float() - rp.float()).abs().max().item(),
+                          (km.float() - rm.float()).abs().max().item())
+                if not (torch.equal(kp.view(torch.int16),
+                                    rp.view(torch.int16))
+                        and torch.equal(km.view(torch.int16),
+                                        rm.view(torch.int16))):
+                    fail(f"{kname} != plain at {shape} (offset {off}): "
+                         f"max err {err}")
+            if shape == wte:
+                n = p.numel()
+                timing = {
+                    "ms": cuda_ms(lambda: fu.fused_momentum_update(
+                        p, m, g, lr=LR, beta=BETA)),
+                    "plain_ms": cuda_ms(lambda: fu.momentum_update_reference(
+                        p, m, g, lr=LR, beta=BETA)),
+                    "bound_ms": _bound(10.0 * n, rate), "bound_by": "bytes"}
+                timing.update(_fused_sgd_half(p, m, g))
+        log(f"{kname} == plain (bit for bit) at {wte}, (1000003,), "
+            f"(37, 300), aligned and unaligned")
+        log(f"{kname} at wte {wte}: kernel_ms={timing['ms']:.4f} "
+            f"plain_ms={timing['plain_ms']:.4f} "
+            f"bound_ms={timing['bound_ms']:.4f} (bytes) library_ms="
+            + ("none" if timing["library_ms"] is None
+               else f"{timing['library_ms']:.4f}")
+            + f" (torch._fused_sgd_ differs from plain by at most "
+            f"{timing['library_max_abs_diff']})")
+        rows.append({"name": kname, "ported": True, "route": "cuda",
+                     "dtype": dname, "on_path": on_path,
+                     "source": "brpc_tpu_torch/ops/csrc/fused_update.cu",
+                     "replaces": "brpc_tpu/ops/fused_update.py:23",
+                     "launches": None, "max_abs_err": err, **timing})
+    return rows
+
+
+def _fused_sgd_half(p, m, g) -> dict:
+    """``torch._fused_sgd_`` on the same half tensors: its time, and its
+    largest difference from the plain version after one step (it keeps
+    the sums in fp32 and rounds once, so it need not equal the plain
+    version's rounded ops)."""
+    import torch
+
+    from brpc_tpu_torch.ops import fused_update as fu
+
+    def step(pp, mm):
+        torch._fused_sgd_(pp, [g], mm, weight_decay=0.0, momentum=BETA,
+                          lr=LR, dampening=0.0, nesterov=False,
+                          maximize=False, is_first_step=False)
+
+    try:
+        pp, mm = [p.clone()], [m.clone()]
+        step(pp, mm)
+        rp, rm = fu.momentum_update_reference(p, m, g, lr=LR, beta=BETA)
+        torch.cuda.synchronize()
+        diff = max((pp[0].float() - rp.float()).abs().max().item(),
+                   (mm[0].float() - rm.float()).abs().max().item())
+        return {"library_ms": cuda_ms(lambda: step(pp, mm)),
+                "library_max_abs_diff": diff}
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        # No fused SGD for this dtype in this build: no library time.
+        log(f"  torch._fused_sgd_ on {p.dtype}: {e}")
+        return {"library_ms": None, "library_max_abs_diff": None}
 
 
 def _bound(nbytes: float, rate: float) -> float:
@@ -737,9 +848,9 @@ def main_path(seed: int) -> dict:
             "server tensors; quantized pulls within codec.error_bound "
             f"(worst error/bound int8 {worst['int8']:.3f}, fp8 "
             f"{worst['fp8e4m3']:.3f})")
-        want = {"brpc_fused_momentum": PUSHES * len(names),
-                "brpc_dequant_int8": (PUSHES + 1) * n_elig,
-                "brpc_dequant_fp8e4m3": n_elig, "brpc_flash_carry": 0}
+        want = _full({"brpc_fused_momentum": PUSHES * len(names),
+                      "brpc_dequant_int8": (PUSHES + 1) * n_elig,
+                      "brpc_dequant_fp8e4m3": n_elig})
         log(f"launches on the main path: {launches} (expected {want})")
         # Also a check that the native library shares torch's libstdc++:
         # a dump formats every variable through iostreams.
@@ -815,9 +926,16 @@ def _counts() -> dict:
     from brpc_tpu_torch.ops import quantize as qz
 
     return {"brpc_fused_momentum": fu.LAUNCHES,
+            "brpc_fused_momentum_f16": fu.LAUNCHES_F16,
+            "brpc_fused_momentum_bf16": fu.LAUNCHES_BF16,
             "brpc_dequant_int8": qz.LAUNCHES_INT8,
             "brpc_dequant_fp8e4m3": qz.LAUNCHES_FP8,
             "brpc_flash_carry": fa.LAUNCHES}
+
+
+def _full(want: dict) -> dict:
+    """``want`` over every counted kernel (the ones it does not name: 0)."""
+    return {name: want.get(name, 0) for name in _counts()}
 
 
 def _counted(label: str, fn, want):
@@ -1304,9 +1422,8 @@ def fleet_path(seed: int, smi: str) -> dict:
         log(f"fleet state == plain replay (bit for bit, momenta "
             f"included) on both shards {owned_by}; every name on its "
             f"ketama owner; {len(moved)} moved == the plan's owner diff")
-        want = {"brpc_fused_momentum": 2 * len(names),
-                "brpc_dequant_int8": 4 * len(elig) + n_oneside,
-                "brpc_dequant_fp8e4m3": 0, "brpc_flash_carry": 0}
+        want = _full({"brpc_fused_momentum": 2 * len(names),
+                      "brpc_dequant_int8": 4 * len(elig) + n_oneside})
         log(f"launches on the fleet path: {launches} (expected {want}: "
             f"K1 one per name per push; K2 one per eligible name per push, "
             f"per fleet int8 pull, per one-sided read and per PullQ read)")
@@ -2521,6 +2638,492 @@ def serving_fleet_path(seed: int, smi: str) -> dict:
 
 # ---------------------------------------------------------------- main
 
+# ---------------------------------------------------------------- phase 9
+
+PS_OP_TAG = "chip_smoke_ps_operator"
+# Phase 9's operator settings: each tenant may hold 2 calls in flight; the
+# parameter service holds every admitted call 20 ms first (inject_latency),
+# so the greedy tenant's window of 8 overruns its quota; pushes ride a
+# window of 2, inside the quota.
+PS_OP = {"quota": 2, "latency_ms": 20, "greedy_window": 8, "push_window": 2,
+         "steady_name": "ln_f.weight"}
+
+
+class _TenantCalls:
+    """Counts the calls the given clients issue, by the tenant stamped on
+    the issuing thread ("" = unstamped, which the server keys by ip)."""
+
+    def __init__(self, *clients):
+        import collections
+        import ctypes
+
+        from brpc_tpu_torch.runtime import native
+
+        self.calls = collections.Counter()
+        self._mu = threading.Lock()
+        L = native.lib()
+        for cl in clients:
+            for attr in ("call_raw", "call_async"):
+                real = getattr(cl.channel, attr)
+
+                def counted(*a, _real=real, **k):
+                    prio = ctypes.c_int()
+                    buf = ctypes.create_string_buffer(512)
+                    L.tbrpc_qos_get(ctypes.byref(prio), buf, len(buf))
+                    with self._mu:
+                        self.calls[buf.value.decode()] += 1
+                    return _real(*a, **k)
+
+                setattr(cl.channel, attr, counted)
+
+
+def _plain_int8(x, dev):
+    """What an int8 wire carries for ``x`` (a card tensor), widened by the
+    plain dequantize: the host codec's codes, then dequantize_reference."""
+    import torch
+
+    from brpc_tpu_torch.ops import quantize as qz
+    from brpc_tpu_torch.runtime import codec
+
+    host = x.cpu().numpy()
+    e = codec.encode(host, "int8")
+    meta = {"dtype": "<f4", "shape": list(host.shape), "codec": "int8",
+            "block": e.block}
+    q, s = codec.split_wire(meta, e.wire)
+    return qz.dequantize_reference(
+        torch.from_numpy(q.copy()).to(dev), torch.from_numpy(s.copy()).to(dev),
+        block=e.block, n=host.size, shape=host.shape)
+
+
+def _replay_push(ref_p, ref_m, grads, dev, ef=None):
+    """The plain replay of one push of ``grads`` into (ref_p, ref_m): raw,
+    or (``ef``, an ErrorFeedback) the exact int8 codes the client sent."""
+    import torch
+
+    from brpc_tpu_torch.ops import fused_update as fu
+    from brpc_tpu_torch.ops import quantize as qz
+    from brpc_tpu_torch.runtime import codec
+
+    for k, g in grads.items():
+        if ef is not None and codec.eligible(g):
+            x = ef.compensate(k, g.cpu().numpy())
+            e = codec.encode(x, "int8")
+            ef.settle(k, x, e.dequantized())
+            meta = {"dtype": "<f4", "shape": list(g.shape), "codec": "int8",
+                    "block": e.block}
+            q, s = codec.split_wire(meta, e.wire)
+            g = qz.dequantize_reference(
+                torch.from_numpy(q.copy()).to(dev),
+                torch.from_numpy(s.copy()).to(dev), block=e.block,
+                n=g.numel(), shape=tuple(g.shape))
+        ref_p[k], ref_m[k] = fu.momentum_update_reference(
+            ref_p[k], ref_m[k], g, lr=LR, beta=BETA)
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype in (torch.float16, torch.bfloat16):
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+    return torch.equal(a, b)
+
+
+def ps_operator_path(seed: int, smi: str) -> dict:
+    """Phase 9: the parameter server's operator surface at the GPT-2 small
+    parameter set on the card. (a) Two tenants share a server with a
+    per-tenant quota: the greedy one is shed and paced but completes, the
+    steady one is never shed, tenantz accounts for every call, and both
+    tenants' int8 pushes land as a plain replay. (b) A server with
+    ``codecs=()`` serves an int8 client raw. (c) The set in fp16 takes two
+    raw pushes through K1's fp16 kernel. (d) A 2-shard fleet, one shard
+    publishing raw and one int8, read with ``FleetClient(oneside=True)``.
+    (e) Host only: a gRPC echo and a tidl stub call over the port. Returns
+    the path's launch counts, which must equal the plan's."""
+    import gc
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from brpc_tpu_torch.fleet import (FleetClient, FleetServer, RegistryHub,
+                                      clear_registry)
+    from brpc_tpu_torch.observability import metrics
+    from brpc_tpu_torch.runtime import codec, native, tidl
+    from brpc_tpu_torch.runtime.param_server import (ParameterClient,
+                                                     ParameterServer,
+                                                     PartialPullError)
+    from brpc_tpu_torch.runtime.tensor import TensorArena
+
+    gc.collect()  # earlier phases' arenas go back to /dev/shm first
+    shapes = gpt2_shapes()
+    names = sorted(shapes)
+    dev = torch.device("cuda")
+    elig = sorted(k for k in names
+                  if 4 * int(np.prod(shapes[k])) >= codec.MIN_QUANT_BYTES)
+    largest = max(4 * int(np.prod(s)) for s in shapes.values())
+    srv_b = 2 * largest + (256 << 20)
+    cli_b = largest + (256 << 20)
+    host = make_params(shapes, seed)
+    gen = torch.Generator(device=dev)
+
+    def grads_for(step, dtype=torch.float32):
+        gen.manual_seed(seed * 104729 + step)
+        return {k: (torch.randn(shapes[k], generator=gen, device=dev)
+                    * 1e-3).to(dtype) for k in names}
+
+    def fresh_state(values):
+        p = {k: torch.from_numpy(v).to(dev) for k, v in values.items()}
+        return p, {k: torch.zeros_like(v) for k, v in p.items()}
+
+    counters = _counts()
+    for c in counters.values():
+        c.reset()
+
+    def snap():
+        torch.cuda.synchronize()
+        return {name: c.value for name, c in counters.items()}
+
+    def delta(before):
+        now = snap()
+        return {name: now[name] - before[name] for name in now}
+
+    def check(label, got, want):
+        want = _full(want)
+        log(f"  {label} launches: {got}")
+        if got != want:
+            fail(f"{label}: launch counts {got} != expected {want}")
+
+    t_path = time.monotonic()
+    closers = []
+
+    def close_all():
+        while closers:
+            closers.pop()()
+        gc.collect()
+
+    try:
+        # ---- (a) tenants
+        before = snap()
+        ps = ParameterServer(host, lr=LR, momentum=BETA,
+                             arena=TensorArena(srv_b), device=dev)
+        port = ps.start()
+        closers.append(lambda ps=ps: (ps.stop(), ps.server.close()))
+        ps.server.set_tenant_quota(PS_OP["quota"])
+        addr = f"tpu://127.0.0.1:{port}"
+        greedy = ParameterClient(addr, arena=TensorArena(cli_b),
+                                 codec="int8", tenant="greedy", device=dev)
+        steady = ParameterClient(addr, arena=TensorArena(cli_b),
+                                 codec="int8", tenant="steady", device=dev)
+        closers += [greedy.close, steady.close]
+        calls = _TenantCalls(greedy, steady)
+        greedy.meta()
+        steady.meta()
+        done = threading.Event()
+        steady_lat, steady_bad = [], []
+        sname = PS_OP["steady_name"]
+
+        def steady_loop():
+            while not done.is_set() or len(steady_lat) < 3:
+                t0 = time.monotonic()
+                try:
+                    v, t = steady.pull(sname)
+                except Exception as e:  # noqa: BLE001 — reported below
+                    steady_bad.append(f"{type(e).__name__}: {e}")
+                    return
+                steady_lat.append(time.monotonic() - t0)
+                if v != 0 or not torch.equal(t.cpu(),
+                                             torch.from_numpy(host[sname])):
+                    steady_bad.append(f"steady pull of {sname} (v{v}) != "
+                                      "the server tensor")
+                    return
+
+        native.inject_latency("ParamService", PS_OP["latency_ms"])
+        th = threading.Thread(target=steady_loop)
+        got, missing, rounds = {}, list(names), 0
+        t0 = time.monotonic()
+        th.start()
+        try:
+            while missing:
+                rounds += 1
+                if rounds > 2000:
+                    fail("the greedy tenant's pull_all never completed")
+                try:
+                    got.update(greedy.pull_all(
+                        missing, window=PS_OP["greedy_window"]))
+                    missing = []
+                except PartialPullError as e:
+                    if not e.overloaded:
+                        raise
+                    got.update(e.partial)
+                    missing = e.missing
+                except native.RpcError as e:
+                    if not e.overloaded:
+                        raise
+        finally:
+            done.set()
+            th.join()
+            native.inject_latency("", 0)
+        torch.cuda.synchronize()
+        t_greedy = time.monotonic() - t0
+        if steady_bad:
+            fail("steady tenant: " + "; ".join(steady_bad))
+        tz = {t["name"]: t for t in ps.server.tenantz()["tenants"]}
+        g_calls, s_calls = calls.calls["greedy"], calls.calls["steady"]
+        log(f"(a) tenants, quota {PS_OP['quota']}, {PS_OP['latency_ms']} ms "
+            f"injected: greedy pull_all(window={PS_OP['greedy_window']}) of "
+            f"{len(names)} names (int8) in {t_greedy:.3f} s over {rounds} "
+            f"rounds; {g_calls} calls, tenantz admitted "
+            f"{tz['greedy']['admitted']} shed {tz['greedy']['shed']}, pacer "
+            f"sheds {greedy.pacer.sheds}; steady {len(steady_lat)} pulls of "
+            f"{sname}, p50 {statistics.median(steady_lat) * 1e3:.2f} ms, max "
+            f"{max(steady_lat) * 1e3:.2f} ms, tenantz admitted "
+            f"{tz['steady']['admitted']} shed {tz['steady']['shed']} ({smi})")
+        if not (tz["greedy"]["shed"] >= 1 and greedy.pacer.sheds >= 1):
+            fail("the greedy tenant was never shed")
+        if tz["steady"]["shed"] != 0 or steady.pacer.sheds != 0:
+            fail(f"the steady tenant was shed: {tz['steady']}")
+        for name, n in (("greedy", g_calls), ("steady", s_calls)):
+            row = tz[name]
+            if row["admitted"] + row["shed"] != n or row["inflight"] != 0:
+                fail(f"tenantz {name} {row} does not account for its {n} "
+                     "calls")
+        if tz["steady"]["admitted"] != len(steady_lat):
+            fail(f"steady: {tz['steady']['admitted']} admitted for "
+                 f"{len(steady_lat)} pulls")
+        state = ps.state()
+        for k in names:
+            v, t = got[k]
+            want = (_plain_int8(state.params[k], dev) if k in elig
+                    else state.params[k])
+            if v != 0 or not torch.equal(t, want):
+                fail(f"greedy pull of {k} (v{v}) != the server tensor's "
+                     "int8 wire")
+        log("  every pulled tensor == the server's (raw, or its int8 wire "
+            "widened by the plain dequantize), bit for bit")
+        pulls_a = delta(before)
+        check("(a) greedy pulls", pulls_a,
+              {"brpc_dequant_int8": len(elig)})
+
+        before = snap()
+        ref_p, ref_m = fresh_state(host)
+        for label, cl, step in (("greedy", greedy, 1), ("steady", steady, 2)):
+            grads = grads_for(step)
+            t0 = time.monotonic()
+            vers = cl.push_all(grads, window=PS_OP["push_window"])
+            torch.cuda.synchronize()
+            log(f"  {label} push_all int8 (window {PS_OP['push_window']}): "
+                f"{time.monotonic() - t0:.3f} s")
+            if vers != {k: step for k in names}:
+                fail(f"{label} push versions: {vers}")
+            _replay_push(ref_p, ref_m, grads, dev, codec.ErrorFeedback())
+        state = ps.state()
+        for k in names:
+            if not (torch.equal(state.params[k], ref_p[k])
+                    and torch.equal(state.momenta[k], ref_m[k])):
+                fail(f"{k}: two tenants' int8 pushes != the plain replay")
+        log("  state after both tenants' int8 push_alls == plain replay "
+            "(bit for bit)")
+        tz = {t["name"]: t for t in ps.server.tenantz()["tenants"]}
+        for name in ("greedy", "steady"):
+            if (tz[name]["admitted"] + tz[name]["shed"]
+                    != calls.calls[name]):
+                fail(f"tenantz {name} {tz[name]} after the pushes does not "
+                     f"account for its {calls.calls[name]} calls")
+        check("(a) pushes", delta(before),
+              {"brpc_fused_momentum": 2 * len(names),
+               "brpc_dequant_int8": 2 * len(elig)})
+        close_all()
+        del ps, greedy, steady, calls, got, state, ref_p, ref_m
+
+        # ---- (b) a server with its codecs withdrawn
+        before = snap()
+        ps = ParameterServer(host, lr=LR, momentum=BETA, codecs=(),
+                             arena=TensorArena(srv_b), device=dev)
+        port = ps.start()
+        closers.append(lambda ps=ps: (ps.stop(), ps.server.close()))
+        cl = ParameterClient(f"tpu://127.0.0.1:{port}", codec="int8",
+                             arena=TensorArena(cli_b), device=dev)
+        closers.append(cl.close)
+        if cl.negotiated_codec() is not None:
+            fail("a codecs=() server negotiated a codec")
+        pulled = cl.pull_all()
+        for k in names:
+            if not torch.equal(pulled[k][1].cpu(), torch.from_numpy(host[k])):
+                fail(f"(b) raw pull of {k} != the seeded tensor")
+        ref_p, ref_m = fresh_state(host)
+        grads = grads_for(3)
+        if cl.push_all(grads) != {k: 1 for k in names}:
+            fail("(b) push versions")
+        _replay_push(ref_p, ref_m, grads, dev)
+        state = ps.state()
+        pulled = cl.pull_all()
+        for k in names:
+            if not (torch.equal(state.params[k], ref_p[k])
+                    and torch.equal(state.momenta[k], ref_m[k])
+                    and torch.equal(pulled[k][1], ref_p[k])):
+                fail(f"(b) {k}: state or pull != the raw plain replay")
+        log("(b) codecs=() server: the int8 client negotiated None; raw "
+            "pull_all == seeded set, raw push_all == plain replay, pull == "
+            "state (bit for bit)")
+        check("(b) codecs=()", delta(before),
+              {"brpc_fused_momentum": len(names)})
+        close_all()
+        del ps, cl, pulled, state, ref_p, ref_m
+
+        # ---- (c) fp16 parameters
+        before = snap()
+        host16 = {k: v.astype(np.float16) for k, v in host.items()}
+        nbytes16 = sum(v.nbytes for v in host16.values())
+        ps = ParameterServer(host16, lr=LR, momentum=BETA,
+                             arena=TensorArena(srv_b), device=dev)
+        port = ps.start()
+        closers.append(lambda ps=ps: (ps.stop(), ps.server.close()))
+        cl = ParameterClient(f"tpu://127.0.0.1:{port}",
+                             arena=TensorArena(cli_b), device=dev)
+        closers.append(cl.close)
+        ref_p, ref_m = fresh_state(host16)
+        for step in (4, 5):
+            grads = grads_for(step, torch.float16)
+            t0 = time.monotonic()
+            if cl.push_all(grads) != {k: step - 3 for k in names}:
+                fail(f"(c) fp16 push {step - 3} versions")
+            torch.cuda.synchronize()
+            log(f"(c) fp16 push_all #{step - 3} ({nbytes16 / 1e6:.1f} MB): "
+                f"{time.monotonic() - t0:.3f} s")
+            _replay_push(ref_p, ref_m, grads, dev)
+        state = ps.state()
+        for k in names:
+            if not (_same_bits(state.params[k], ref_p[k])
+                    and _same_bits(state.momenta[k], ref_m[k])):
+                fail(f"(c) fp16 {k}: state != the plain half replay")
+        v, t = cl.pull("wte.weight")
+        if v != 2 or not _same_bits(t, state.params["wte.weight"]):
+            fail("(c) fp16 pull of wte != the server tensor")
+        log("  fp16 state == plain half-precision replay (bit for bit); "
+            "fp16 pull == server")
+        check("(c) fp16", delta(before),
+              {"brpc_fused_momentum_f16": 2 * len(names)})
+        close_all()
+        del ps, cl, state, ref_p, ref_m, host16
+
+        # ---- (d) one-sided fleet reads, one shard raw, one int8
+        before = snap()
+        ar = _fleet_arenas(shapes, codec)
+        hub = RegistryHub()
+        hub.start()
+        closers.append(lambda: (clear_registry(), hub.stop()))
+        shards = []
+        for i, pub in enumerate((None, "int8")):
+            s = FleetServer(hub.hostport, tag=PS_OP_TAG,
+                            shard_name=f"ps_op_s{i}", ttl_s=FLEET_TTL_S,
+                            device=dev, lr=LR, momentum=BETA, oneside=True,
+                            oneside_codec=pub,
+                            arena=TensorArena(ar["server"]))
+            s.start()
+            shards.append(s)
+            closers.append(lambda s=s: (s.stop(), s.ps.server.close()))
+        fq = FleetClient(hub.hostport, tag=PS_OP_TAG, codec="int8",
+                         device=dev, arena_bytes=ar["client"],
+                         op_deadline_s=300.0)
+        fr = FleetClient(hub.hostport, tag=PS_OP_TAG, device=dev,
+                         arena_bytes=ar["small"], op_deadline_s=300.0)
+        fo = FleetClient(hub.hostport, tag=PS_OP_TAG, device=dev,
+                         arena_bytes=ar["small"], op_deadline_s=300.0,
+                         oneside=True)
+        closers += [fq.close, fr.close, fo.close]
+        for k in names:
+            fq.install(k, host[k], refresh=False)
+        owner = {k: s.addr for s in shards for k in s.ps.state().params}
+        if sorted(owner) != names:
+            fail("(d) the fleet does not hold every name once")
+        int8_pub = [k for k in elig if owner[k] == shards[1].addr]
+        t0 = time.monotonic()
+        raw = fr.pull_all(names)
+        torch.cuda.synchronize()
+        t_raw = time.monotonic() - t0
+        t0 = time.monotonic()
+        q = fq.pull_all(names)
+        torch.cuda.synchronize()
+        t_q = time.monotonic() - t0
+        hits = metrics.counter("torch_oneside_pull_hits")
+        h0, k2 = hits.value(), counters["brpc_dequant_int8"].value
+        t0 = time.monotonic()
+        one = fo.pull_all(names)
+        torch.cuda.synchronize()
+        t_one = time.monotonic() - t0
+        k2_one = counters["brpc_dequant_int8"].value - k2
+        if hits.value() - h0 != len(names):
+            fail(f"(d) one-sided hits {hits.value() - h0} for {len(names)} "
+                 "names")
+        for k in names:
+            want = q[k] if k in int8_pub else raw[k]
+            if one[k][0] != want[0] or not torch.equal(one[k][1], want[1]):
+                fail(f"(d) one-sided pull of {k} != the RPC pull_all")
+            if not torch.equal(raw[k][1].cpu(), torch.from_numpy(host[k])):
+                fail(f"(d) raw fleet pull of {k} != the seeded tensor")
+        n_raw = sum(1 for k in names if owner[k] == shards[0].addr)
+        log(f"(d) 2-shard fleet ({n_raw} names published raw, "
+            f"{len(names) - n_raw} int8): "
+            f"FleetClient(oneside=True) pull_all {t_one:.3f} s, RPC raw "
+            f"{t_raw:.3f} s, RPC int8 {t_q:.3f} s; one-sided == RPC "
+            f"(raw names == raw pull, int8 names == PullQ) bit for bit; K2 "
+            f"{k2_one} on the one-sided read for {len(int8_pub)} int8 "
+            f"publications ({smi})")
+        if k2_one != len(int8_pub):
+            fail(f"(d) K2 launched {k2_one} times for {len(int8_pub)} int8 "
+                 "publications")
+        check("(d) one-sided fleet", delta(before),
+              {"brpc_dequant_int8": len(elig) + len(int8_pub)})
+        close_all()
+        del shards, fq, fr, fo, raw, q, one
+
+        # ---- (e) host only: gRPC and a generated tidl stub
+        srv = native.Server()
+        srv.add_echo_service()
+        closers.append(srv.close)
+        ch = native.Channel(f"127.0.0.1:{srv.start()}", timeout_ms=10000,
+                            protocol="grpc")
+        closers.append(ch.close)
+        payload = os.urandom(1 << 16)
+        if ch.call("EchoService/Echo", payload)[0] != payload:
+            fail("(e) gRPC echo against the port's server")
+        with tempfile.TemporaryDirectory() as out:
+            stub = tidl.load_stub(tidl.generate(
+                os.path.join(HERE, "examples", "echo.tidl"), out))
+
+        class Impl:
+            def Echo(self, request, attachment):
+                return stub.EchoResponse(
+                    message=request.message[::-1], serial=request.serial,
+                    stats=stub.Stats(served=1, mean_len=2.5)), attachment
+
+        tsrv = native.Server()
+        stub.add_EchoService(tsrv, Impl())
+        closers.append(tsrv.close)
+        tch = native.Channel(f"127.0.0.1:{tsrv.start()}", timeout_ms=10000)
+        closers.append(tch.close)
+        resp, att = stub.EchoServiceStub(tch).Echo(
+            stub.EchoRequest(message="tidl", serial=-7, history=[1, 2]),
+            attachment=b"att")
+        if (resp.message, resp.serial, resp.stats.mean_len, att) != (
+                "ldit", -7, 2.5, b"att"):
+            fail(f"(e) tidl stub call: {resp}, {att}")
+        log("(e) host only: gRPC echo of 65536 bytes against the port's "
+            "server, and a tools/tidl_gen.cpp stub (echo.tidl) over the "
+            "port, both == expected")
+        close_all()
+        launches = delta({name: 0 for name in counters})
+        log(f"ps_operator path: {time.monotonic() - t_path:.3f} s; launches "
+            f"{launches}")
+        return {k: v for k, v in launches.items() if v}
+    finally:
+        native.inject_latency("", 0)
+        close_all()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2572,12 +3175,16 @@ def main() -> int:
     t0 = time.monotonic()
     by_path.update(serving_fleet_path(args.seed, smi))
     log(f"== phase 8 (serving fleet) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    by_path["ps_operator"] = ps_operator_path(args.seed, smi)
+    log(f"== phase 9 (parameter-server operator surface) "
+        f"{time.monotonic() - t0:.1f} s")
     for r in rows:
         # Every path, zeros included: the serving runs list 0 for each.
         r["launches_by_path"] = {p: c.get(r["name"], 0)
                                  for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())
-        if not r["launches"]:
+        if not r["launches"] and r.get("on_path", True):
             fail(f"{r['name']} was launched on no path")
     log(f"== all phases {time.monotonic() - t_all:.1f} s")
     log(smi)

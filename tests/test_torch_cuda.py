@@ -57,6 +57,78 @@ def test_momentum_kernel_refuses_what_it_does_not_take(cuda):
         fu.fused_momentum_update(y, y, y)
 
 
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1,), (13,), (1000,), (37, 300),
+                                   (768, 2304)])
+def test_momentum_kernel_half_matches_plain(cuda, dtype, shape):
+    """fp16/bf16: the kernel's fp32-per-op, rounded-per-op arithmetic
+    equals the plain version's rounded half ops bit for bit, on the 16-byte
+    path, the ragged tail and (offset by one element) the scalar path."""
+    gen = torch.Generator(device=cuda).manual_seed(7 + sum(shape))
+    p, m, g = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    counter = fu.LAUNCHES_F16 if dtype == torch.float16 else fu.LAUNCHES_BF16
+    before, before32 = counter.value, fu.LAUNCHES.value
+    kp, km = fu.fused_momentum_update(p, m, g, lr=0.05, beta=0.8)
+    assert counter.value == before + 1 and fu.LAUNCHES.value == before32
+    assert kp.dtype == km.dtype == dtype
+    rp, rm = fu.momentum_update_reference(p, m, g, lr=0.05, beta=0.8)
+    assert torch.equal(kp.view(torch.int16), rp.view(torch.int16))
+    assert torch.equal(km.view(torch.int16), rm.view(torch.int16))
+    kp1, km1 = fu.fused_momentum_update(p.reshape(-1)[1:], m.reshape(-1)[1:],
+                                        g.reshape(-1)[1:], lr=0.05, beta=0.8)
+    assert torch.equal(kp1.view(torch.int16),
+                       rp.reshape(-1)[1:].view(torch.int16))
+    assert torch.equal(km1.view(torch.int16),
+                       rm.reshape(-1)[1:].view(torch.int16))
+
+
+def test_momentum_kernel_refuses_mixed_dtypes(cuda):
+    x = torch.ones(8, device=cuda)
+    with pytest.raises(TypeError, match="must agree"):
+        fu.fused_momentum_update(x.half(), x.half(), x)
+
+
+def test_fp16_server_push_on_the_card_equals_plain_replay(cuda):
+    """A ParameterServer holding fp16 parameters on the card takes raw fp16
+    pushes (one K1 fp16 launch each) and ends where the plain half replay
+    does, bit for bit."""
+    from brpc_tpu_torch.runtime.param_server import (ParameterClient,
+                                                     ParameterServer)
+
+    rng = np.random.default_rng(5)
+    params = {"w": rng.standard_normal((300, 37)).astype(np.float16),
+              "b": rng.standard_normal(777).astype(np.float16)}
+    ps = ParameterServer(params, lr=0.05, momentum=0.8, device=cuda)
+    cl = ParameterClient(f"tpu://127.0.0.1:{ps.start()}", codec="int8",
+                         device=cuda)
+    try:
+        grads = [{k: torch.from_numpy(rng.standard_normal(v.shape).astype(
+            np.float16)).to(cuda) for k, v in params.items()}
+            for _ in range(2)]
+        k1 = fu.LAUNCHES_F16.value
+        for g in grads:
+            cl.push_all(g)  # fp16 is not int8-eligible: it rides raw
+        assert fu.LAUNCHES_F16.value - k1 == 2 * len(params)
+        state = ps.state()
+        for k, v in params.items():
+            rp = torch.from_numpy(v).to(cuda)
+            rm = torch.zeros_like(rp)
+            for g in grads:
+                rp, rm = fu.momentum_update_reference(rp, rm, g[k], lr=0.05,
+                                                      beta=0.8)
+            assert state.params[k].dtype == torch.float16
+            assert torch.equal(state.params[k].view(torch.int16),
+                               rp.view(torch.int16))
+            assert torch.equal(state.momenta[k].view(torch.int16),
+                               rm.view(torch.int16))
+        v, t = cl.pull("w")
+        assert v == 2 and torch.equal(t, state.params["w"])
+    finally:
+        cl.close()
+        ps.stop()
+
+
 @pytest.mark.parametrize("cname,dtype", [("int8", torch.int8),
                                          ("fp8e4m3", torch.float8_e4m3fn)])
 @pytest.mark.parametrize("n,block", [(1, 256), (1027, 256), (4096, 128),
@@ -193,6 +265,51 @@ def test_fleet_reshard_and_oneside_pull_on_the_card(cuda):
     finally:
         if mig is not None:
             mig.stop()
+        for c in clients:
+            c.close()
+        for s in servers:
+            s.stop()
+        clear_registry()
+        hub.stop()
+
+
+def test_fleet_oneside_client_launches_k2_once_per_eligible_name(cuda):
+    """FleetClient(oneside=True) over two shards publishing int8 reads every
+    name from the windows: one K2 launch per int8-eligible name, each
+    tensor equal to the fleet's RPC int8 pull bit for bit."""
+    from brpc_tpu_torch.fleet import (FleetClient, FleetServer, RegistryHub,
+                                      clear_registry)
+    from brpc_tpu_torch.observability import metrics
+
+    rng = np.random.default_rng(9)
+    params = {f"p{i}": rng.standard_normal(s).astype(np.float32)
+              for i, s in enumerate([(64, 64), (300,), (40, 300), (2000,)])}
+    elig = [n for n, v in params.items() if codec.eligible(v)]
+    hub = RegistryHub()
+    hub.start()
+    tag = "cuda_oneside_fleet"
+    servers, clients = [], []
+    try:
+        for i in range(2):
+            s = FleetServer(hub.hostport, tag=tag, shard_name=f"os{i}",
+                            device=cuda, oneside=True, oneside_codec="int8")
+            s.start()
+            servers.append(s)
+        fq = FleetClient(hub.hostport, tag=tag, codec="int8", device=cuda)
+        fo = FleetClient(hub.hostport, tag=tag, device=cuda, oneside=True)
+        clients += [fq, fo]
+        for n, v in params.items():
+            fq.install(n, v)
+        want = fq.pull_all(sorted(params))
+        hits = metrics.counter("torch_oneside_pull_hits")
+        h0, k2 = hits.value(), qz.LAUNCHES_INT8.value
+        got = fo.pull_all(sorted(params))
+        assert qz.LAUNCHES_INT8.value - k2 == len(elig) > 0
+        assert hits.value() - h0 == len(params)
+        for n in params:
+            assert got[n][0] == want[n][0] == 0
+            assert torch.equal(got[n][1], want[n][1])
+    finally:
         for c in clients:
             c.close()
         for s in servers:

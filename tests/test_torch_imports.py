@@ -95,6 +95,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         ParameterClient("tpu://127.0.0.1:1")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda:0")
+    # The multi-rank launcher: one card per rank unless asked for gloo.
+    from brpc_tpu_torch.parallel.launch import run_ranks
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_ranks(1, print)
 
 
 @pytest.mark.parametrize("entry", ["flagship_entry", "init_state",

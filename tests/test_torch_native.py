@@ -493,8 +493,10 @@ def test_latency_recorder_read_side_and_null_series(live_native):
         rec.record_us(us)
         twin.record_us(us)
     assert rec.count() == twin.count() == 4
+    # The max and the percentile windows are sampled apart: wait for both
+    # in both recorders.
     deadline = time.monotonic() + 5
-    while rec.max_us() == 0 or twin.max_us() == 0:
+    while 0 in (rec.max_us(), twin.max_us(), rec.p99(), twin.p99()):
         assert time.monotonic() < deadline, "the windows never sampled"
         time.sleep(0.1)
     assert rec.max_us() == 4000

@@ -266,6 +266,94 @@ def test_int8_publication_equals_pullq(oneside_env, server_impl,
         srv.stop()
 
 
+@pytest.mark.parametrize("server_impl", ["torch", "jax"])
+def test_oneside_per_call_overrides_the_client_flag(oneside_env,
+                                                    server_impl):
+    """``pull(oneside=)`` and ``pull_all(oneside=)`` choose per call, as the
+    JAX client's do: a client made without the flag reads the window when
+    asked, and one made with it rides the RPC path when told not to."""
+    srv, addr = _server(server_impl, oneside=True)
+    plain = _client("torch", addr)
+    flagged = _client("torch", addr, oneside=True)
+    hits, _ = _counters(oneside_env["metrics"])
+    try:
+        h0 = hits.value()
+        v, a = plain.pull("w")
+        assert hits.value() == h0 and plain._oneside_reader is None
+        v1, a1 = plain.pull("w", oneside=True)
+        assert hits.value() == h0 + 1
+        assert v == v1 == 0
+        np.testing.assert_array_equal(a1.numpy(), a.numpy())
+        got = plain.pull_all(oneside=True)
+        assert hits.value() == h0 + 1 + len(PARAMS)
+        for name, (ver, t) in got.items():
+            assert ver == 0
+            np.testing.assert_array_equal(t.numpy(), PARAMS[name])
+        h1 = hits.value()
+        flagged.pull("b", oneside=False)
+        flagged.pull_all(oneside=False)
+        assert hits.value() == h1
+        flagged.pull("b")
+        assert hits.value() == h1 + 1
+    finally:
+        plain.close()
+        flagged.close()
+        srv.stop()
+
+
+def test_fleet_client_oneside_reads_every_shards_window(oneside_env):
+    """FleetClient(oneside=True) over two port shards, one publishing raw
+    and one int8: every name is read from its shard's window (one hit
+    each) and equals the RPC fleet pull of the same form, bit for bit."""
+    from brpc_tpu_torch.fleet import (FleetClient, FleetServer, RegistryHub,
+                                      clear_registry)
+
+    hub = RegistryHub()
+    hub.start()
+    tag = "torch_oneside_fleet"
+    shards, clients = [], []
+    try:
+        for i, pub in enumerate((None, "int8")):
+            s = FleetServer(hub.hostport, tag=tag, shard_name=f"tof{i}",
+                            device="cpu", oneside=True, oneside_codec=pub)
+            s.start()
+            shards.append(s)
+        # Pinned placement: an eligible tensor on each shard.
+        pins = {"w": shards[0].addr, "tiny": shards[0].addr,
+                "q": shards[1].addr, "b": shards[1].addr}
+        fq = FleetClient(hub.hostport, tag=tag, codec="int8", device="cpu",
+                         overrides=pins)
+        fr = FleetClient(hub.hostport, tag=tag, device="cpu",
+                         overrides=pins)
+        fo = FleetClient(hub.hostport, tag=tag, device="cpu", oneside=True,
+                         tenant="reader", overrides=pins)
+        clients += [fq, fr, fo]
+        names = sorted(PARAMS)
+        for n in names:
+            fq.install(n, PARAMS[n])
+        int8_shard = set(shards[1].ps.state().params)
+        assert int8_shard == {"q", "b"}
+        raw, q = fr.pull_all(names), fq.pull_all(names)
+        hits, _ = _counters(oneside_env["metrics"])
+        h0 = hits.value()
+        got = fo.pull_all(names)
+        assert hits.value() - h0 == len(names)
+        for n in names:
+            want = q[n] if n in int8_shard else raw[n]
+            assert got[n][0] == want[0] == 0
+            np.testing.assert_array_equal(got[n][1].numpy(),
+                                          want[1].numpy())
+            np.testing.assert_array_equal(raw[n][1].numpy(), PARAMS[n])
+        assert not np.array_equal(got["q"][1].numpy(), PARAMS["q"])  # int8
+    finally:
+        for c in clients:
+            c.close()
+        for s in shards:
+            s.stop()
+        clear_registry()
+        hub.stop()
+
+
 def test_torn_read_retry_under_republish_hammer(oneside_env):
     """Concurrent republishing: every successful read is uniformly
     stamped with its own version and versions never go backwards."""

@@ -125,3 +125,94 @@ def test_dequant_plain_reshapes_and_checks_sizes():
         tq.dequantize_blocks(torch.from_numpy(np.array(q)),
                              torch.from_numpy(np.array(s[:-1])), block=256,
                              n=37 * 300, shape=(37, 300))
+
+
+# ---- K1 in half precision -------------------------------------------------
+#
+# The JAX package applies the update in the parameters' own dtype. Its
+# server's numpy path (no TPU; brpc_tpu/runtime/param_server.py:896-906)
+# computes ``momentum * m + g`` and ``p - lr * m2`` on float16 arrays with
+# Python-float constants: NEP 50 rounds the constants to float16 and every
+# operation rounds to float16. Its Pallas kernel in interpret mode does the
+# same for bfloat16. The port's plain version (and the CUDA kernel, which
+# runs each operation in fp32 and rounds it) follows that order, so both
+# comparisons are bit for bit.
+
+HALF_SHAPES = [(1000,), (64, 256), (37, 300)]
+
+
+def _bits(x):
+    """Raw 16-bit patterns of a half tensor or array, for exact equality."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int16).numpy()
+    return np.asarray(x).view(np.int16)
+
+
+@pytest.mark.parametrize("shape", HALF_SHAPES)
+def test_momentum_fp16_plain_matches_jax_server_numpy_update(shape):
+    p, m, g = (a.astype(np.float16) for a in _pmg(shape, seed=7 + sum(shape)))
+    tfu.LAUNCHES_F16.reset()
+    tp, tm = tfu.fused_momentum_update(
+        torch.from_numpy(p), torch.from_numpy(m), torch.from_numpy(g),
+        lr=LR, beta=BETA)
+    assert tfu.LAUNCHES_F16.value == 0  # CPU tensors take the plain version
+    assert tp.dtype == tm.dtype == torch.float16
+    # The JAX server's numpy update, as it is written there.
+    m2 = BETA * m + g
+    p2 = p - LR * m2
+    assert m2.dtype == p2.dtype == np.float16
+    np.testing.assert_array_equal(_bits(tm), _bits(m2))
+    np.testing.assert_array_equal(_bits(tp), _bits(p2))
+
+
+@pytest.mark.parametrize("shape", HALF_SHAPES)
+def test_momentum_bf16_plain_matches_jax_kernel_interpreted(shape):
+    p, m, g = _pmg(shape, seed=11 + sum(shape))
+    tp, tm = tfu.fused_momentum_update(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (p, m, g)),
+        lr=LR, beta=BETA)
+    jp, jm = jfu.fused_momentum_update(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (p, m, g)), lr=LR,
+        beta=BETA, interpret=True)
+    assert tp.dtype == torch.bfloat16 and jp.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(_bits(tm), _bits(jm))
+    np.testing.assert_array_equal(_bits(tp), _bits(jp))
+
+
+@pytest.mark.parametrize("shape", HALF_SHAPES)
+def test_momentum_fp16_plain_against_jax_jitted(shape):
+    """The jitted JAX function (XLA:CPU) computes fp16 elementwise work in
+    fp32 and rounds a fused expression once: m' = rnd(beta*m + g) with the
+    product unrounded, p' = rnd(p - lr*m'). The port rounds beta*m and
+    lr*m' to fp16 first, as the JAX server's numpy path does. So the two
+    differ by at most one dropped half-ulp rounding of each product plus
+    one ulp of the result they round to (m': 1/2 ulp(beta*m) + 1 ulp(m');
+    p': that error scaled by lr, 1/2 ulp(lr*m') and 1 ulp(p')) — within
+    one fp16 ulp at the rounded product and one at the result. Measured in
+    fp16 ulps of the result alone the gap is unbounded, because beta*m + g
+    can cancel to a value far smaller than the product."""
+    p, m, g = (a.astype(np.float16) for a in _pmg(shape, seed=3 + sum(shape)))
+    tp, tm = (t.numpy().astype(np.float32) for t in tfu.fused_momentum_update(
+        torch.from_numpy(p), torch.from_numpy(m), torch.from_numpy(g),
+        lr=LR, beta=BETA))
+    jp, jm = (np.asarray(a).astype(np.float32) for a in
+              jfu.fused_momentum_update(jnp.asarray(p), jnp.asarray(m),
+                                        jnp.asarray(g), lr=LR, beta=BETA))
+
+    def ulp(x):
+        return np.spacing(np.abs(x).astype(np.float16)).astype(np.float32)
+
+    b16, lr16 = np.float32(np.float16(BETA)), np.float32(np.float16(LR))
+    e_m = 0.5 * ulp(b16 * m.astype(np.float32)) + ulp(tm)
+    assert (np.abs(tm - jm) <= e_m).all()
+    e_p = lr16 * e_m + 0.5 * ulp(lr16 * tm) + ulp(tp)
+    assert (np.abs(tp - jp) <= e_p).all()
+    assert (tm != jm).any()  # the orders really differ at this size
+
+
+def test_momentum_rejects_mixed_dtypes():
+    p, m, g = (torch.from_numpy(a) for a in _pmg((64,), seed=5))
+    with pytest.raises(TypeError, match="must agree"):
+        tfu.fused_momentum_update(p.half(), m.half(), g)
+    with pytest.raises(TypeError, match="must agree"):
+        tfu.fused_momentum_update(p, m.bfloat16(), g)

@@ -216,3 +216,61 @@ def test_native_library_links_libstdcxx_dynamically(tmp_path):
     subprocess.run(["g++", "-shared", "-fPIC", "-static-libstdc++",
                     "-static-libgcc", str(src), "-o", str(so)], check=True)
     assert not tnative.links_shared_libstdcxx(str(so))
+
+
+# ---- fp16 parameters ---------------------------------------------------
+#
+# fp16 crosses the wire as '<f2' in both packages, and the JAX server
+# applies the update in the parameters' dtype (its numpy path on this
+# host). The port's server applies K1's plain fp16 version, which rounds
+# the constants and every operation to fp16 as numpy does: tolerance 0.
+
+HALF = {k: (a * np.float32(0.5)).astype(np.float16) for k, a in PARAMS.items()}
+HALF_GRADS = [{k: a.astype(np.float16) for k, a in g.items()} for g in GRADS]
+
+
+def _drive_fp16(server_impl, client_impl):
+    if server_impl == "jax":
+        ps = jps.ParameterServer({k: jnp.asarray(v) for k, v in HALF.items()},
+                                 lr=LR, momentum=BETA)
+    else:
+        ps = tps.ParameterServer(state_from_numpy(HALF, device="cpu"),
+                                 lr=LR, momentum=BETA)
+    port = ps.start()
+    cl = _client(client_impl, port)
+    try:
+        versions = [cl.push_grad("w_a", _grad(client_impl, HALF_GRADS[0]
+                                              ["w_a"]))]
+        for g in HALF_GRADS[1:]:
+            versions.append(cl.push_all({k: _grad(client_impl, a)
+                                         for k, a in g.items()}))
+        v, t = cl.pull("w_a")
+        pulled = (v, _host(t))
+        if server_impl == "jax":
+            state = ({k: np.asarray(a) for k, a in ps._params.items()},
+                     {k: np.asarray(a) for k, a in ps._momenta.items()})
+        else:
+            params, momenta, _v = state_to_numpy(ps.state())
+            state = (params, momenta)
+    finally:
+        cl.close()
+        ps.stop()
+    return versions, pulled, state
+
+
+@pytest.mark.parametrize("client_impl", ["torch", "jax"])
+def test_fp16_server_matches_jax_server_bit_for_bit(client_impl):
+    want_v, want_pull, (want_p, want_m) = _drive_fp16("jax", "jax")
+    got_v, got_pull, (got_p, got_m) = _drive_fp16("torch", client_impl)
+    assert got_v == want_v
+    assert want_v[-1] == {"w_a": 3, "w_b": 2, "bias": 2, "vec": 2}
+    assert got_pull[0] == want_pull[0] == 3
+    assert got_pull[1].dtype == np.float16
+    np.testing.assert_array_equal(got_pull[1].view(np.int16),
+                                  want_pull[1].view(np.int16))
+    for k in SHAPES:
+        assert got_p[k].dtype == got_m[k].dtype == np.float16
+        np.testing.assert_array_equal(got_p[k].view(np.int16),
+                                      want_p[k].view(np.int16))
+        np.testing.assert_array_equal(got_m[k].view(np.int16),
+                                      want_m[k].view(np.int16))
