@@ -127,7 +127,7 @@ class ChunkCodec:
                 x = self._efacc.compensate(key, flat) if self.ef else flat
                 # `codec` is the group's negotiated choice, fixed at
                 # construction (group._codec_for); the quantizer never
-                # picks one.
+                # picks one.  tpulint: allow(negotiation)
                 enc = codec_mod.encode(x, codec, block=self.block,
                                        min_bytes=self.min_bytes)
                 if enc is not None:

@@ -35,9 +35,12 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from brpc_tpu_torch.models.tp_layers import shard_axis, shard_span
 from brpc_tpu_torch.ops.fused_update import (fused_momentum_update,
                                              momentum_update_reference)
-from brpc_tpu_torch.parallel.collectives import ring_shift
+from brpc_tpu_torch.parallel.collectives import (broadcast_from,
+                                                 fanout_reduce, gather_to,
+                                                 ring_shift)
 from brpc_tpu_torch.parallel.launch import one_rank_group, run_ranks
 from brpc_tpu_torch.parallel.mesh import CLIENT_AXIS, SHARD_AXIS, make_mesh
 from brpc_tpu_torch.utils.device import resolve_device
@@ -208,8 +211,8 @@ def make_sharded_train_step(mesh: DeviceMesh):
 
 
 # ---------------------------------------------------------------------------
-# The layered step (single device): the per-layer forward and top-down
-# backward the overlapped step driver schedules.
+# The layered step: the per-layer forward and top-down backward the
+# overlapped step driver schedules, on one device or over a mesh.
 # ---------------------------------------------------------------------------
 
 def _layer_fwd(a: torch.Tensor, w: torch.Tensor, last: bool):
@@ -238,50 +241,114 @@ class LayeredMLP:
     propagating the delta one layer down. fp32 throughout; the manual
     backward equals autograd of the same stack.
 
-    Single device only (``mesh=None``): the mesh form needs a design of
-    its own in a one-process-per-rank port — which rank drives the wire
-    and how pulled weights reach the others (ROADMAP A9b).
+    ``mesh``: a 2-D ``DeviceMesh`` with ``client`` and ``shard`` axes
+    (``parallel.mesh.make_mesh``), one process per rank, each building
+    its own harness. Batches shard over ``client``; weights alternate over
+    ``shard`` as the JAX package's specs do — even layers by columns,
+    odd layers by rows, spans ``tp_layers.shard_span`` by shard rank. The
+    mesh's first rank (global rank 0 for ``make_mesh``) is the WIRE rank,
+    the only one that talks to the parameter server:
+
+    * ``place(name, t)``: the wire rank broadcasts the full pulled
+      tensor, the others receive it (their ``t`` is ignored); each keeps
+      its shard;
+    * ``backward(ctx, name)``: the FULL gradient on the wire rank (summed
+      over ``client``, gathered over ``shard``), None on the others.
+
+    So ``OverlappedStepDriver(client, h)`` on the wire rank and
+    ``OverlappedStepDriver(None, h)`` on every other rank push ONE
+    gradient per name per step. The fan-ins are sums over mesh groups:
+    the row layer's forward partials and the column layer's input-gradient
+    partials over ``shard``, each weight gradient over ``client``. A
+    column-sharded last layer (an odd layer count) keeps its output
+    sharded: the loss's sum of squares is summed over both axes, so its
+    delta is this rank's columns with no gather. Every collective runs
+    on the calling thread, in the same order on every rank.
     """
 
     def __init__(self, sizes, mesh=None, seed: int = 0, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "LayeredMLP over a mesh is not ported yet: with one "
-                "process per rank it needs its own design of which rank "
-                "drives the wire (ROADMAP A9b)")
         if len(sizes) < 2:
             raise ValueError("need at least one layer (two sizes)")
+        if mesh is not None and not (
+                isinstance(mesh, DeviceMesh) and mesh.ndim == 2
+                and tuple(mesh.mesh_dim_names or ())
+                == (CLIENT_AXIS, SHARD_AXIS)):
+            raise TypeError(f"mesh must be a 2-D DeviceMesh with axes "
+                            f"({CLIENT_AXIS!r}, {SHARD_AXIS!r}) "
+                            f"(parallel.mesh.make_mesh), got {mesh!r}")
         self.sizes = list(sizes)
-        self.mesh = None
+        self.mesh = mesh
         self.seed = seed
         self.device = resolve_device(device)
         self.names = [f"layer{k:02d}" for k in range(len(sizes) - 1)]
+        self.is_wire = True
+        if mesh is not None:
+            self._rank = {a: (mesh.get_local_rank(a), mesh[a].size())
+                          for a in (CLIENT_AXIS, SHARD_AXIS)}
+            self._sum = {a: fanout_reduce(mesh, a)
+                         for a in (CLIENT_AXIS, SHARD_AXIS)}
+            wire = int(mesh.mesh[0, 0])
+            self.is_wire = dist.get_rank() == wire
+            self._bcast = broadcast_from(mesh, src=wire)
+            # Only the wire rank's shard row joins the gradient gather.
+            self._gather = (gather_to(mesh, SHARD_AXIS, dst=wire)
+                            if self._rank[CLIENT_AXIS][0] == 0 else None)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
             self.device)
 
+    def _span(self, axis: str, n_elems: int):
+        i, n = self._rank[axis]
+        return shard_span(n_elems, i, n)
+
+    def _shard(self, k: int, w):
+        """This rank's block of layer ``k``'s full weight (numpy or
+        tensor)."""
+        ax = shard_axis(k)
+        off, ln = self._span(SHARD_AXIS, w.shape[ax])
+        return w[:, off:off + ln] if ax == 1 else w[off:off + ln]
+
     def init_params(self) -> dict:
         """normal / sqrt(fan-in) weights from a numpy generator seeded
-        with ``seed``."""
+        with ``seed``; on a mesh, this rank's shards of them."""
         rng = np.random.default_rng(self.seed)
-        return {name: self._tensor(
-                    rng.standard_normal((self.sizes[k], self.sizes[k + 1]))
-                    / np.sqrt(self.sizes[k]))
-                for k, name in enumerate(self.names)}
+        full = [rng.standard_normal((self.sizes[k], self.sizes[k + 1]))
+                / np.sqrt(self.sizes[k]) for k in range(len(self.names))]
+        if self.mesh is not None:
+            full = [self._shard(k, w) for k, w in enumerate(full)]
+        return {name: self._tensor(w) for name, w in zip(self.names, full)}
 
     def data(self, batch: int, seed: int = 1):
         """A standard-normal (x, y) pair shaped for this stack, from a numpy
-        generator seeded with ``seed``."""
+        generator seeded with ``seed``; on a mesh, this rank's ``client``
+        block of its rows."""
         rng = np.random.default_rng(seed)
         x = rng.standard_normal((batch, self.sizes[0]))
         y = rng.standard_normal((batch, self.sizes[-1]))
+        if self.mesh is not None:
+            off, ln = self._span(CLIENT_AXIS, batch)
+            x, y = x[off:off + ln], y[off:off + ln]
         return self._tensor(x), self._tensor(y)
 
     def place(self, name: str, arr):
-        return arr
+        if self.mesh is None:
+            return arr
+        k = self.names.index(name)
+        shape = (self.sizes[k], self.sizes[k + 1])
+        if self.is_wire:
+            full = arr.to(self.device, torch.float32).contiguous()
+            if tuple(full.shape) != shape:
+                raise ValueError(f"{name}: pulled {tuple(full.shape)}, "
+                                 f"the stack takes {shape}")
+        else:
+            full = torch.empty(shape, dtype=torch.float32,
+                               device=self.device)
+        return self._shard(k, self._bcast(full)).contiguous()
 
     def forward(self, params, x, y) -> dict:
+        if self.mesh is not None:
+            return self._mesh_forward(params, x, y)
         acts, zs = [x], []
         a = x
         for k, name in enumerate(self.names):
@@ -293,6 +360,33 @@ class LayeredMLP:
         return {"acts": acts, "zs": zs, "loss": loss, "delta": delta,
                 "params": dict(params), "next": len(self.names) - 1}
 
+    def _mesh_forward(self, params, x, y) -> dict:
+        acts, zs = [x], []
+        a = x
+        last = len(self.names) - 1
+        for k, name in enumerate(self.names):
+            z = torch.matmul(a, params[name])
+            if shard_axis(k) == 0:  # row layer: sum the partials
+                z = self._sum[SHARD_AXIS](z)
+            a = z if k == last else torch.relu(z)
+            zs.append(z)
+            acts.append(a)
+        if shard_axis(last) == 1:  # column-sharded head: its columns of y
+            off, ln = self._span(SHARD_AXIS, self.sizes[-1])
+            y = y[:, off:off + ln]
+        r = a - y
+        # [sum of squares, element count], summed wherever r is split.
+        acc = torch.stack([torch.sum(torch.square(r)).double(),
+                           torch.tensor(float(r.numel()), dtype=torch.float64,
+                                        device=r.device)])
+        acc = self._sum[CLIENT_AXIS](acc)
+        if shard_axis(last) == 1:
+            acc = self._sum[SHARD_AXIS](acc)
+        numel = int(acc[1].item())
+        return {"acts": acts, "zs": zs, "loss": acc[0] / numel,
+                "delta": (2.0 / numel) * r, "params": dict(params),
+                "next": last}
+
     def backward(self, ctx: dict, name: str):
         k = self.names.index(name)
         if k != ctx["next"]:
@@ -301,11 +395,26 @@ class LayeredMLP:
                 f", got {name} — deltas propagate top-down only")
         delta = ctx["delta"]
         g = _grad_w(ctx["acts"][k], delta)
+        if self.mesh is not None:
+            return self._mesh_backward(ctx, k, g)
         if k > 0:
             ctx["delta"] = _delta_prev(delta, ctx["params"][name],
                                        ctx["zs"][k - 1])
         ctx["next"] = k - 1
         return g
+
+    def _mesh_backward(self, ctx: dict, k: int, g):
+        g = self._sum[CLIENT_AXIS](g)
+        if k > 0:
+            d = torch.matmul(ctx["delta"], ctx["params"][self.names[k]].T)
+            if shard_axis(k) == 1:  # column layer: sum the partials
+                d = self._sum[SHARD_AXIS](d)
+            ctx["delta"] = d * (ctx["zs"][k - 1] > 0)
+        ctx["next"] = k - 1
+        if self._gather is None:
+            return None
+        ax = shard_axis(k)
+        return self._gather(g, dim=ax, total=self.sizes[k + ax])
 
     def loss(self, ctx: dict) -> float:
         return float(ctx["loss"])

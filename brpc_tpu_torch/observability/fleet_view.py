@@ -723,6 +723,7 @@ class FleetObserver:
                  reader("serving_spec_accept_pct")),
                 ("serving_prefix_hit_pct",
                  reader("serving_prefix_hit_pct"))):
-            # Fixed names from this table only.
+            # Fixed names from this table only, under PORT_PREFIX
+            # ("torch_").  tpulint: allow(metric-namespace-torch)
             obs.repointable_gauge(f"{PORT_PREFIX}fleet_{name}", fn)  # tpulint: allow(metric-name)
         self._gauges_published = True

@@ -3,10 +3,17 @@
 The port of brpc_tpu/parallel/collectives.py. The JAX package shard_maps a
 program over a global array; here each rank calls the returned function on
 its own block, and the collective runs over the process group of one mesh
-dimension (``mesh.get_group(axis)``): NCCL between cards, gloo on the CPU.
+dimension (``mesh.get_group(axis)``): NCCL between cards, gloo on the CPU
+and between ranks that share one card (``launch.run_ranks(...,
+share_card=True)``). gloo takes CUDA tensors for every verb here (torch
+2.11: all_reduce, broadcast, gather, all_gather_into_tensor,
+reduce_scatter_tensor, checked on an H100 host) and stages them through
+the host inside the backend, so no verb moves a tensor itself.
 
 - ParallelChannel broadcast + ResponseMerger -> ``fanout_gather`` (all_gather)
   / ``fanout_reduce`` (all_reduce)
+- the same merge delivered to one caller       -> ``gather_to`` (gather)
+- one rank's reply fanned out to every rank   -> ``broadcast_from``
 - the bandwidth-optimal half of that merge    -> ``reduce_scatter``
 - Streaming RPC's windowed relay              -> ``ring_stream`` (point-to-
   point ring by ``batch_isend_irecv``)
@@ -19,6 +26,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from brpc_tpu_torch.collectives.ring import chunk_spans
 from brpc_tpu_torch.parallel.mesh import CLIENT_AXIS, SHARD_AXIS
 
 
@@ -71,6 +79,57 @@ def fanout_reduce(mesh: DeviceMesh, axis: str = CLIENT_AXIS):
         return out
 
     return _reduce
+
+
+def gather_to(mesh: DeviceMesh, axis: str = SHARD_AXIS, dst: int = 0):
+    """Every rank of ``axis`` contributes its block of a tensor split
+    along ``dim`` by the ``chunk_spans`` layout of ``total`` (the first
+    ``total % n`` blocks one longer); global rank ``dst`` (a member of
+    this rank's ``axis`` group) gets the blocks concatenated in rank
+    order, every other rank None — the merge delivered to the one caller
+    that needs it. Each block is padded to the longest for the transfer
+    and trimmed after."""
+    group = mesh.get_group(axis)
+
+    def _gather(x: torch.Tensor, dim: int, total: int):
+        n = dist.get_world_size(group)
+        lengths = [ln for _off, ln in chunk_spans(total, n)]
+        if x.shape[dim] != lengths[dist.get_rank(group)]:
+            raise ValueError(f"gather_to: block of {x.shape[dim]} along "
+                             f"dim {dim}, the layout gives "
+                             f"{lengths[dist.get_rank(group)]}")
+        longest = max(lengths)
+        x = x.contiguous()
+        if x.shape[dim] < longest:
+            pad = list(x.shape)
+            pad[dim] = longest - x.shape[dim]
+            x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+        parts = ([torch.empty_like(x) for _ in range(n)]
+                 if dist.get_rank() == dst else None)
+        dist.gather(x, parts, dst=dst, group=group)
+        if parts is None:
+            return None
+        return torch.cat([p.narrow(dim, 0, ln)
+                          for p, ln in zip(parts, lengths)], dim=dim)
+
+    return _gather
+
+
+def broadcast_from(mesh: DeviceMesh, src: int = 0):
+    """Global rank ``src``'s tensor to every rank of the mesh, which spans
+    the whole process group (``make_mesh``): each rank passes a tensor of
+    the same shape and dtype, filled in place on all but ``src``."""
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"broadcast_from: the mesh holds {mesh.size()} of "
+                         f"{dist.get_world_size()} ranks")
+
+    def _bcast(x: torch.Tensor) -> torch.Tensor:
+        if not x.is_contiguous():
+            raise ValueError("broadcast_from: fills a contiguous tensor")
+        dist.broadcast(x, src=src)
+        return x
+
+    return _bcast
 
 
 def reduce_scatter(mesh: DeviceMesh, axis: str = CLIENT_AXIS):

@@ -13,8 +13,10 @@ for the JAX package's ``NamedSharding`` specs):
   (PartitionChannel's N/M server groups), and the ring of ring attention.
 
 The mesh lives on CUDA when the group's backend is NCCL and on the CPU for
-gloo. Collectives then run over ``mesh.get_group(axis)``
-(parallel/collectives.py).
+gloo, also when gloo joins ranks that share one card
+(``launch.run_ranks(..., share_card=True)``): the mesh only names the
+groups, and gloo's verbs take the ranks' CUDA tensors. Collectives then
+run over ``mesh.get_group(axis)`` (parallel/collectives.py).
 """
 
 from __future__ import annotations

@@ -422,6 +422,8 @@ class WirePipe:
                 raise TimeoutError(
                     f"pipe sync: registry shows {len(addrs)} stage(s), "
                     f"want {self.stages}")
+            # Bootstrap poll on the caller's own thread (sync runs before
+            # any handler exists), not a fiber.  tpulint: allow(py-blocking)
             time.sleep(0.05)
         stage_addr = {self.stage: self.addr}
         for a in addrs:

@@ -23,6 +23,14 @@ gradient; ``record_stream`` on every tensor that changes streams). A
 wire lane's D2H therefore never queues behind backward kernels enqueued
 after the gradient it copies.
 
+Over a mesh (``LayeredMLP(mesh=...)``, one process per rank) only the
+wire rank (the harness's ``is_wire``) holds a client; every other rank
+runs the same driver with ``client=None``: the same ``place`` and
+``backward`` calls in the same order on its compute lane, no wire lane.
+Every collective of the harness therefore runs on the caller's thread, in
+program order on every rank, and the server takes one push per name per
+step.
+
 Failure semantics: a mid-step push failure cancels only its dependents,
 every other branch completes, and the step raises
 :class:`~brpc_tpu_torch.runtime.param_server.PartialPushError` with the
@@ -156,19 +164,31 @@ class OverlappedStepDriver(_Recorder):
     ``client``: a :class:`ParameterClient` (pushes ride one
     ``PipelineWindow`` per step over its channel) or any fleet-shaped
     object with ``pull``/``push_grad``/``pull_all`` (pushes confirm
-    synchronously per name).
+    synchronously per name); None on a mesh harness's ranks other than
+    the wire rank, which run forward and backward only. A failed step on
+    the wire rank is not salvaged across ranks: the others wait at the
+    next collective, so the run ends.
 
     ``harness`` protocol (see ``models.tensor_service.LayeredMLP``):
       * ``names``: parameter names in FORWARD order;
       * ``device``: where its tensors live;
-      * ``place(name, tensor)``: apply the harness's placement;
+      * ``place(name, tensor)``: apply the harness's placement (called
+        for every name in forward order each step);
       * ``forward(params, x, y) -> ctx``;
-      * ``backward(ctx, name) -> grad`` (called top layer first);
-      * ``loss(ctx) -> float``.
+      * ``backward(ctx, name) -> grad`` (called top layer first; None
+        off the wire rank);
+      * ``loss(ctx) -> float``;
+      * ``is_wire`` (optional, default True): whether this rank drives
+        the wire.
     """
 
     def __init__(self, client, harness, overlap: bool = True,
                  window: int = 4):
+        if (client is None) == getattr(harness, "is_wire", True):
+            raise ValueError(
+                "the wire rank's driver takes a client and every other "
+                "mesh rank's takes client=None (harness.is_wire is "
+                f"{getattr(harness, 'is_wire', True)}, client {client!r})")
         self.client = client
         self.harness = harness
         self.overlap = overlap
@@ -183,7 +203,10 @@ class OverlappedStepDriver(_Recorder):
 
     def prime(self) -> None:
         """Fetch the full parameter set once (the step-0 pull the overlap
-        then amortizes into every later step's shadow)."""
+        then amortizes into every later step's shadow); nothing off the
+        wire rank."""
+        if self.client is None:
+            return
         got = self.client.pull_all(list(self.harness.names),
                                    window=self.window)
         for name, (version, arr) in got.items():
@@ -231,17 +254,22 @@ class OverlappedStepDriver(_Recorder):
         push_bytes = _tensor_metrics()["push_bytes"]
 
         def fn_forward(done):
-            for name, arr in self._raw.items():
-                self._params[name] = self.harness.place(
-                    name, handoff.adopt(arr))
-            self._raw.clear()
+            # Forward order on every rank: a mesh harness's place is a
+            # collective. A name with no pull since its last placement
+            # keeps that placement.
+            for name in names:
+                if self.client is None:
+                    self._params[name] = self.harness.place(name, None)
+                elif name in self._raw:
+                    self._params[name] = self.harness.place(
+                        name, handoff.adopt(self._raw.pop(name)))
             ctx_box["ctx"] = self.harness.forward(self._params, x, y)
             return None
 
         def make_bwd(name):
             def fn(done):
-                grads[name] = handoff.publish(
-                    self.harness.backward(ctx_box["ctx"], name))
+                g = self.harness.backward(ctx_box["ctx"], name)
+                grads[name] = None if g is None else handoff.publish(g)
                 return None
             return fn
 
@@ -323,9 +351,10 @@ class OverlappedStepDriver(_Recorder):
             prev = graph.add(f"bwd:{name}",
                              _traced(f"step/bwd:{name}", make_bwd(name)),
                              deps=(prev,), lane=COMPUTE)
-        for stage, before, make in (("push", "bwd", make_push),
-                                    ("opt", "push", make_opt),
-                                    ("pull", "opt", make_pull)):
+        for stage, before, make in ((("push", "bwd", make_push),
+                                     ("opt", "push", make_opt),
+                                     ("pull", "opt", make_pull))
+                                    if self.client is not None else ()):
             for name in rev:
                 graph.add(f"{stage}:{name}",
                           _traced(f"step/{stage}:{name}", make(name)),
@@ -427,6 +456,12 @@ class CollectiveStepDriver(_Recorder):
     :class:`~brpc_tpu_torch.collectives.core.CollectiveAborted` with the
     graph post-mortem on ``.step_failure``.
 
+    No mesh harness: each member is one full replica, and its gradient
+    exchange is the group's ring. A ``LayeredMLP(mesh=...)`` rank holds a
+    shard and a wire-rank role, which only :class:`OverlappedStepDriver`
+    drives (the JAX package drives no mesh harness here either); this
+    driver refuses one.
+
     ``track=True`` — T3 track-and-trigger (arXiv 2401.16677): the
     momentum update rides the collective's per-chunk finality hook
     (``on_chunk``) instead of an ``opt:k`` node. The wire lane copies the
@@ -445,6 +480,9 @@ class CollectiveStepDriver(_Recorder):
                  wire_lanes: int = 2, lr: float = 0.01,
                  momentum: float = 0.9, average: bool = True,
                  track: bool = False):
+        if getattr(harness, "mesh", None) is not None:
+            raise ValueError("CollectiveStepDriver drives full replicas; "
+                             "a mesh harness rides OverlappedStepDriver")
         self.group = group
         self.harness = harness
         self.overlap = overlap
@@ -570,6 +608,10 @@ class CollectiveStepDriver(_Recorder):
                              deps=(prev,), lane=COMPUTE)
         mk_ar = make_allreduce_tracked if self.track else make_allreduce
         for k, name in enumerate(rev):
+            # track=True launches K1 on this lane by design: the update
+            # rides the collective's per-chunk finality hook, on the
+            # lane's own stream; one launch per landed chunk.
+            # tpulint: allow(regime-graph-torch)
             graph.add(f"allreduce:{name}",
                       _traced(f"step/allreduce:{name}", mk_ar(name)),
                       deps=(f"bwd:{name}",),

@@ -139,7 +139,7 @@ class ServingClient:
         if session is not None:
             req["session"] = session
         # Gen/* is QoS-native by construction: there is no pre-QoS Gen
-        # server to negotiate with.
+        # server to negotiate with.  tpulint: allow(negotiation)
         with native.qos(native.PRIORITY_HIGH, self.tenant):
             stream, body = native.open_stream(
                 self.channel, "Gen/Open", json.dumps(req).encode(),
@@ -157,6 +157,7 @@ class ServingClient:
         ENOMETHOD from a server that takes no migrations."""
         req = {"session": session_id, "have": int(have)}
         # Gen/* is QoS-native by construction (see open()).
+        # tpulint: allow(negotiation)
         with native.qos(native.PRIORITY_HIGH, self.tenant):
             stream, _body = native.open_stream(
                 self.channel, "Gen/Resume", json.dumps(req).encode(),
@@ -181,6 +182,7 @@ class ServingClient:
     def _close_session(self, session_id: str) -> None:
         try:
             # Gen/* is QoS-native by construction (see open()).
+            # tpulint: allow(negotiation)
             with native.qos(native.PRIORITY_HIGH, self.tenant):
                 self.channel.call("Gen/Close", json.dumps(
                     {"session": session_id}).encode())

@@ -244,7 +244,7 @@ class DecodeEngine:
             self._lanes[sess.lane] = None
         # Engine-thread-owned: the session is leaving the batch at a
         # step boundary and finish() below retakes _mu before any
-        # state change.
+        # state change.  tpulint: allow(state-machine)
         sess.lane = -1
         self.manager.finish(sess, shed_reason=shed_reason)
 
@@ -302,7 +302,7 @@ class DecodeEngine:
                 self._lanes[sess.lane] = None
                 # Terminal sessions only (evict_expired transitioned
                 # them under _mu); no admission path can race a
-                # terminal state.
+                # terminal state.  tpulint: allow(state-machine)
                 sess.lane = -1
                 self.manager.release_kv(sess)
         # Sweep lanes whose session was finished EXTERNALLY (client
@@ -318,6 +318,7 @@ class DecodeEngine:
             if sess.state in (DONE, SHED):
                 self._lanes[i] = None
                 # Terminal sweep, same discipline as above.
+                # tpulint: allow(state-machine)
                 sess.lane = -1
                 self.manager.release_kv(sess)
             elif sess.state == FROZEN:
@@ -463,7 +464,7 @@ class DecodeEngine:
                 self._lanes[sess.lane] = None
             # Prefill handoff: the engine owns the lane until freeze()
             # (which takes _mu) publishes FROZEN; lane == -1 is the
-            # exporter go signal.
+            # exporter go signal.  tpulint: allow(state-machine)
             sess.lane = -1
             if self.manager.freeze(sess) \
                     and self.on_session_frozen is not None:

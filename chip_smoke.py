@@ -73,7 +73,17 @@ checkout. Phases, each fatal on failure:
      takes two raw push_alls through K1's fp16 kernel, equal to the plain
      half replay; (d) a 2-shard fleet, one shard publishing raw and one
      int8, read with FleetClient(oneside=True) equals the RPC pull_alls;
-     (e) host only: a gRPC echo and a tidl_gen stub call over the port.
+     (e) host only: a gRPC echo and a tidl_gen stub call over the port;
+ 10. LayeredMLP over a mesh at phase 6's stack and batch: a 2 x 2 (client
+     x shard) mesh of 4 spawned ranks sharing the card over gloo, two
+     steps overlapped and two serial, and a 1-rank NCCL mesh in this
+     process, each under an OverlappedStepDriver whose wire rank (rank
+     0) alone reaches a ParameterServer in this process over tpu://;
+     losses and final weights against the single-device harness on the
+     same driver and server (rtol 2e-5, atol 1e-6), overlapped against
+     serial (1e-6), versions == steps, and K1 launched on the server
+     once per name per step and never in the ranks; logs each step's
+     wall time and the time its collectives took.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after.
@@ -3124,6 +3134,229 @@ def ps_operator_path(seed: int, smi: str) -> dict:
         close_all()
 
 
+# --------------------------------------------------------------- phase 10
+
+# Phase 10: PLANE's stack and batch over a client x shard mesh of 2 x 2
+# ranks sharing the card over gloo, two steps each way.
+MESH = {"client": 2, "shard": 2, "steps": 2, "window": 4}
+
+
+def _timed_verbs(sink: list):
+    """Wraps the torch.distributed verbs the mesh harness calls so each
+    call appends its seconds to ``sink``, the card idle on both sides of
+    it (the compute before it is the step's, not the verb's); returns
+    the function that restores them."""
+    import torch
+    import torch.distributed as dist
+
+    saved = {n: getattr(dist, n) for n in ("all_reduce", "broadcast",
+                                           "gather")}
+
+    def wrap(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            sink.append(time.monotonic() - t)
+            return out
+        return run
+
+    for n, fn in saved.items():
+        setattr(dist, n, wrap(fn))
+    return lambda: [setattr(dist, n, fn) for n, fn in saved.items()]
+
+
+def _mesh_drive(mesh, addr: str, overlap: bool, seed: int, dev) -> dict:
+    """One rank of a mesh harness run: ``LayeredMLP(PLANE["sizes"],
+    mesh=)`` under an ``OverlappedStepDriver`` — with a ParameterClient
+    on the wire rank, ``client=None`` elsewhere — for MESH["steps"] steps
+    of batch PLANE["batch"]; per step its loss, wall time and the time
+    its collectives took."""
+    import torch
+    import torch.distributed as dist
+
+    from brpc_tpu_torch.models.tensor_service import LayeredMLP
+    from brpc_tpu_torch.runtime.param_server import ParameterClient
+    from brpc_tpu_torch.runtime.step_driver import OverlappedStepDriver
+    from brpc_tpu_torch.runtime.tensor import TensorArena
+
+    h = LayeredMLP(PLANE["sizes"], mesh=mesh, seed=seed, device=dev)
+    cl = (ParameterClient(addr, arena=TensorArena(256 << 20), device=dev)
+          if h.is_wire else None)
+    verbs: list = []
+    restore = _timed_verbs(verbs)
+    try:
+        d = OverlappedStepDriver(cl, h, overlap=overlap,
+                                 window=MESH["window"])
+        d.prime()
+        steps = []
+        for i in range(MESH["steps"]):
+            x, y = h.data(PLANE["batch"], seed=seed + 100 + i)
+            torch.cuda.synchronize()
+            n0, t = len(verbs), time.monotonic()
+            loss = d.step(x, y)
+            torch.cuda.synchronize()
+            steps.append({"loss": loss, "wall_s": time.monotonic() - t,
+                          "verb_s": sum(verbs[n0:]),
+                          "verbs": len(verbs) - n0})
+    finally:
+        restore()
+        if cl is not None:
+            cl.close()
+    return {"rank": dist.get_rank(), "is_wire": h.is_wire, "steps": steps,
+            "versions": dict(d.versions)}
+
+
+def _mesh_rank(addr: str, overlap: bool, seed: int) -> dict:
+    """A spawned rank of phase 10's shared-card mesh."""
+    import torch
+
+    from brpc_tpu_torch.ops import fused_update as fu
+    from brpc_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    out = _mesh_drive(make_mesh(MESH["client"], MESH["shard"]), addr,
+                      overlap, seed, torch.device("cuda", 0))
+    out["k1_in_rank"] = fu.LAUNCHES.value
+    return out
+
+
+def mesh_harness_path(seed: int, smi: str) -> dict:
+    """Phase 10: LayeredMLP over a client x shard mesh, one wire rank,
+    against the single-device harness on the same driver and server.
+    Returns each run's launch counts."""
+    import gc
+
+    import torch
+
+    from brpc_tpu_torch.models.tensor_service import LayeredMLP
+    from brpc_tpu_torch.parallel.launch import one_rank_group, run_ranks
+    from brpc_tpu_torch.parallel.mesh import make_mesh
+    from brpc_tpu_torch.runtime.param_server import (ParameterClient,
+                                                     ParameterServer)
+    from brpc_tpu_torch.runtime.step_driver import OverlappedStepDriver
+    from brpc_tpu_torch.runtime.tensor import TensorArena
+
+    gc.collect()
+    dev = torch.device("cuda")
+    sizes, batch, steps = PLANE["sizes"], PLANE["batch"], MESH["steps"]
+    h = LayeredMLP(sizes, seed=seed, device=dev)
+    init = {k: v.cpu().numpy() for k, v in h.init_params().items()}
+    names = h.names
+    want = {"brpc_fused_momentum": len(names) * steps}
+    n = MESH["client"] * MESH["shard"]
+    log(f"mesh harness: {len(names)} layers {sizes[:3]}..., batch {batch}, "
+        f"{MESH['client']} x {MESH['shard']} mesh of {n} ranks sharing the "
+        f"card over gloo, a 1-rank NCCL mesh and one device, {steps} steps "
+        f"each; the ParameterServer in this process, rank 0 on the wire")
+    launches, results = {}, {}
+
+    def served(label, run):
+        """``run(addr)`` against a fresh server seeded with ``init``,
+        counted; -> (run's result, the server's final params)."""
+        ps = ParameterServer(init, lr=LR, momentum=BETA,
+                             arena=TensorArena(256 << 20), device=dev)
+        try:
+            out, launches[label] = _counted(
+                f"mesh harness, {label}", lambda: run(
+                    f"tpu://127.0.0.1:{ps.start()}"), want)
+            state = ps.state()
+            if state.versions != {k: steps for k in names}:
+                fail(f"{label}: server versions {state.versions}")
+            return out, state.params
+        finally:
+            ps.stop()
+            ps.server.close()
+
+    def single(addr):
+        cl = ParameterClient(addr, arena=TensorArena(256 << 20), device=dev)
+        try:
+            d = OverlappedStepDriver(cl, h, overlap=True,
+                                     window=MESH["window"])
+            d.prime()
+            out = []
+            for i in range(steps):
+                x, y = h.data(batch, seed=seed + 100 + i)
+                torch.cuda.synchronize()
+                t = time.monotonic()
+                loss = d.step(x, y)
+                torch.cuda.synchronize()
+                out.append({"loss": loss, "wall_s": time.monotonic() - t,
+                            "verb_s": 0.0, "verbs": 0})
+            return [{"rank": 0, "is_wire": True, "steps": out,
+                     "versions": dict(d.versions)}]
+        finally:
+            cl.close()
+
+    def nccl_one(addr):
+        with one_rank_group("cuda"):
+            return [_mesh_drive(make_mesh(1, 1), addr, True, seed, dev)]
+
+    runs = [("single_device", single),
+            ("mesh_2x2_overlapped", lambda a: run_ranks(
+                n, _mesh_rank, (a, True, seed), device_type="cuda",
+                share_card=True, timeout_s=600)),
+            ("mesh_2x2_serial", lambda a: run_ranks(
+                n, _mesh_rank, (a, False, seed), device_type="cuda",
+                share_card=True, timeout_s=600)),
+            ("mesh_nccl_1rank", nccl_one)]
+    for label, run in runs:
+        ranks, params = served(label, run)
+        results[label] = (ranks, params)
+        wire = [r for r in ranks if r["is_wire"]]
+        if [r["rank"] for r in wire] != [0] or wire[0]["versions"] != {
+                k: steps for k in names}:
+            fail(f"{label}: the wire rank is {[r['rank'] for r in wire]} "
+                 f"with versions {wire[0]['versions'] if wire else None}")
+        losses = [s["loss"] for s in wire[0]["steps"]]
+        for r in ranks:
+            if [s["loss"] for s in r["steps"]] != losses:
+                fail(f"{label}: rank {r['rank']}'s losses differ from the "
+                     "wire rank's")
+            if r.get("k1_in_rank", 0):
+                fail(f"{label}: rank {r['rank']} launched K1 "
+                     f"{r['k1_in_rank']} times")
+        for i in range(steps):
+            wall = max(r["steps"][i]["wall_s"] for r in ranks)
+            verb = max(r["steps"][i]["verb_s"] for r in ranks)
+            calls = wire[0]["steps"][i]["verbs"]
+            log(f"  {label} step {i + 1}: {wall * 1e3:.1f} ms wall (slowest "
+                f"rank), collectives {verb * 1e3:.1f} ms ({calls} calls on "
+                f"the wire rank), the rest {(wall - verb) * 1e3:.1f} ms; "
+                f"loss {losses[i]:.6f} ({smi})")
+        del ranks, params
+        gc.collect()
+
+    ref_losses = [s["loss"] for s in results["single_device"][0][0]["steps"]]
+    ref_params = results["single_device"][1]
+    for label in ("mesh_2x2_overlapped", "mesh_2x2_serial",
+                  "mesh_nccl_1rank"):
+        ranks, params = results[label]
+        losses = [s["loss"] for s in ranks[0]["steps"]]
+        if not all(abs(a - b) <= 1e-6 + 2e-5 * abs(b)
+                   for a, b in zip(losses, ref_losses)):
+            fail(f"{label}: losses {losses} vs one device {ref_losses} "
+                 "outside rtol 2e-5, atol 1e-6")
+        worst = _close_state(f"{label} weights vs one device", params,
+                             ref_params)
+        log(f"  {label} == one device within rtol 2e-5, atol 1e-6 (worst "
+            f"ratio {worst:.3f}); K1 {want['brpc_fused_momentum']} on the "
+            f"server, none in the ranks")
+    (ov, pov), (se, pse) = (results["mesh_2x2_overlapped"],
+                            results["mesh_2x2_serial"])
+    lo = [s["loss"] for s in ov[0]["steps"]]
+    ls = [s["loss"] for s in se[0]["steps"]]
+    if not all(abs(a - b) <= 1e-8 + 1e-6 * abs(b) for a, b in zip(lo, ls)):
+        fail(f"mesh overlapped losses {lo} vs serial {ls} outside 1e-6")
+    worst = _close_state("mesh overlapped vs serial weights", pov, pse,
+                         rtol=1e-6, atol=1e-8)
+    log(f"  mesh overlapped == serial within rtol 1e-6, atol 1e-8 (worst "
+        f"ratio {worst:.3f})")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3179,6 +3412,9 @@ def main() -> int:
     by_path["ps_operator"] = ps_operator_path(args.seed, smi)
     log(f"== phase 9 (parameter-server operator surface) "
         f"{time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    by_path.update(mesh_harness_path(args.seed, smi))
+    log(f"== phase 10 (mesh harness) {time.monotonic() - t0:.1f} s")
     for r in rows:
         # Every path, zeros included: the serving runs list 0 for each.
         r["launches_by_path"] = {p: c.get(r["name"], 0)

@@ -616,6 +616,120 @@ def test_overlapped_driver_hides_wire_time_on_the_card(cuda):
     assert ts_["overlapped_comm_ms"] == 0.0
 
 
+# LayeredMLP over a client x shard mesh on the card: the wire rank (rank 0)
+# alone drives a server in this process; every other rank runs the driver
+# with client=None. Held against the single-device harness on the same
+# driver within rtol 2e-5 / atol 1e-6 (the mesh sums its partials in
+# another order); K1 runs once per name per step, on the server only.
+_MESH_SIZES = [256, 1024, 256, 1024, 128]
+_MESH_BATCH, _MESH_STEPS = 512, 2
+
+
+def _mesh_card_rank(addr, client, shard):
+    from brpc_tpu_torch.models.tensor_service import LayeredMLP
+    from brpc_tpu_torch.parallel.mesh import make_mesh
+    from brpc_tpu_torch.runtime.param_server import ParameterClient
+    from brpc_tpu_torch.runtime.step_driver import OverlappedStepDriver
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    h = LayeredMLP(_MESH_SIZES, mesh=make_mesh(client, shard), seed=7,
+                   device=dev)
+    cl = ParameterClient(addr, device=dev) if h.is_wire else None
+    k1 = fu.LAUNCHES.value
+    try:
+        d = OverlappedStepDriver(cl, h)
+        d.prime()
+        losses = [d.step(*h.data(_MESH_BATCH, seed=70 + i))
+                  for i in range(_MESH_STEPS)]
+    finally:
+        if cl is not None:
+            cl.close()
+    torch.cuda.synchronize()
+    return losses, dict(d.versions), fu.LAUNCHES.value - k1
+
+
+def _mesh_card_run(cuda, run):
+    """``run(addr)`` against a server on the card seeded with the stack's
+    weights -> (run's result, final params, K1 launches meanwhile)."""
+    from brpc_tpu_torch.models.tensor_service import LayeredMLP
+    from brpc_tpu_torch.runtime.param_server import ParameterServer
+
+    init = {k: v.cpu().numpy() for k, v in LayeredMLP(
+        _MESH_SIZES, seed=7, device="cpu").init_params().items()}
+    ps = ParameterServer(init, device=cuda)
+    try:
+        k1 = fu.LAUNCHES.value
+        out = run(f"tpu://127.0.0.1:{ps.start()}")
+        torch.cuda.synchronize()
+        return out, ps.state().params, fu.LAUNCHES.value - k1
+    finally:
+        ps.stop()
+
+
+def _mesh_card_check(cuda, results, params, launches):
+    from brpc_tpu_torch.models.tensor_service import LayeredMLP
+    from brpc_tpu_torch.runtime.param_server import ParameterClient
+    from brpc_tpu_torch.runtime.step_driver import OverlappedStepDriver
+
+    def single(addr):
+        h = LayeredMLP(_MESH_SIZES, seed=7, device=cuda)
+        cl = ParameterClient(addr, device=cuda)
+        try:
+            d = OverlappedStepDriver(cl, h)
+            d.prime()
+            return [d.step(*h.data(_MESH_BATCH, seed=70 + i))
+                    for i in range(_MESH_STEPS)]
+        finally:
+            cl.close()
+
+    ref_losses, ref_params, ref_launches = _mesh_card_run(cuda, single)
+    names = sorted(ref_params)
+    assert launches == ref_launches == len(names) * _MESH_STEPS
+    losses, versions, _k1 = results[0]
+    assert versions == {n: _MESH_STEPS for n in names}
+    for other, v, k1 in results[1:]:
+        assert other == losses and v == {} and k1 == 0
+    np.testing.assert_allclose(losses, ref_losses, rtol=2e-5, atol=1e-6)
+    for n in names:
+        torch.testing.assert_close(params[n], ref_params[n], rtol=2e-5,
+                                   atol=1e-6)
+
+
+def test_mesh_harness_shares_one_card_over_gloo(cuda):
+    from brpc_tpu_torch.parallel.launch import run_ranks
+
+    results, params, launches = _mesh_card_run(cuda, lambda addr: run_ranks(
+        4, _mesh_card_rank, (addr, 2, 2), device_type="cuda",
+        share_card=True, timeout_s=300))
+    assert results[0][2] == 0  # the wire rank launched no K1 itself
+    _mesh_card_check(cuda, results, params, launches)
+
+
+def test_mesh_harness_on_a_one_rank_nccl_group(cuda):
+    import torch.distributed as dist
+
+    from brpc_tpu_torch.parallel.launch import one_rank_group
+
+    def run(addr):
+        with one_rank_group("cuda"):
+            assert dist.get_backend() == "nccl"
+            return [_mesh_card_rank(addr, 1, 1)]
+
+    results, params, launches = _mesh_card_run(cuda, run)
+    _mesh_card_check(cuda, results, params, launches)
+
+
+def test_mesh_harness_over_nccl_on_four_cards(cuda):
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards")
+    from brpc_tpu_torch.parallel.launch import run_ranks
+
+    results, params, launches = _mesh_card_run(cuda, lambda addr: run_ranks(
+        4, _mesh_card_rank, (addr, 2, 2), device_type="cuda",
+        timeout_s=300))
+    _mesh_card_check(cuda, results, params, launches)
+
+
 def test_parameter_server_runs_on_a_stream_of_its_own(cuda, monkeypatch):
     """Every handler's device work — here a push's H2D and K1 — runs on
     the server's stream, not the default stream a trainer in the same

@@ -16,8 +16,10 @@ PKG = os.path.join(ROOT, "brpc_tpu_torch")
 
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
-    for d, _dirs, names in os.walk(PKG):
-        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    for top in (PKG, os.path.join(ROOT, "tools", "tpulint_torch")):
+        for d, _dirs, names in os.walk(top):
+            files += [os.path.join(d, n) for n in names
+                      if n.endswith(".py")]
     return sorted(files)
 
 

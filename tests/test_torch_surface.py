@@ -59,11 +59,6 @@ ALLOWED = {
     },
 }
 
-# Taken, but refused until its design lands: LayeredMLP(mesh=) raises
-# NotImplementedError for a mesh (ROADMAP A9b: which rank drives the wire).
-PENDING = {("models/tensor_service.py", "LayeredMLP.__init__"): "mesh"}
-
-
 def _params(fn):
     a = fn.args
     names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
@@ -178,11 +173,15 @@ def test_allow_list_entries_are_still_needed():
 
 
 def test_pending_parameters_are_taken_and_refused():
-    for (module, qualname), param in PENDING.items():
-        port_surface, nodes = _surface(os.path.join(PORT_PKG, module))
-        assert param in port_surface[qualname]
-        raised = [n for n in ast.walk(nodes[qualname])
-                  if isinstance(n, ast.Raise) and n.exc is not None
-                  and "NotImplementedError" in ast.dump(n.exc)]
-        assert raised, f"{qualname}({param}) no longer refused: drop it " \
-                       "from PENDING"
+    """Nothing is left pending: no public function or method of the port
+    takes a parameter only to refuse it with NotImplementedError (the
+    last one, ``LayeredMLP(mesh=)``, now runs)."""
+    refused = []
+    for module in _modules(PORT_PKG):
+        _s, nodes = _surface(os.path.join(PORT_PKG, module))
+        for qualname, node in nodes.items():
+            if any(isinstance(n, ast.Raise) and n.exc is not None
+                   and "NotImplementedError" in ast.dump(n.exc)
+                   for n in ast.walk(node)):
+                refused.append(f"{module}::{qualname}")
+    assert not refused, refused

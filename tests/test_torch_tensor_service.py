@@ -181,7 +181,7 @@ def test_layered_mlp_data_and_params_from_numpy_seeds():
 
 
 def test_layered_mlp_refuses_a_mesh_and_bad_orders():
-    with pytest.raises(NotImplementedError, match="A9b"):
+    with pytest.raises(TypeError, match="2-D DeviceMesh"):
         tts.LayeredMLP((4, 4), mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="two sizes"):
         tts.LayeredMLP((4,), device="cpu")
