@@ -2,9 +2,14 @@
 
 ``step_sched.run_graph`` runs compute nodes on the caller's thread and
 wire nodes on worker threads. On CUDA each wire lane runs on a stream of
-its own (``lane_stream``), so a D2H a wire node issues never queues
-behind the backward kernels the compute lane enqueues after it. A tensor
-crosses lanes explicitly:
+its own (``LaneStreams``), so a D2H a wire node issues never queues
+behind the backward kernels the compute lane enqueues after it. A
+driver keeps its lanes' streams for its lifetime: the caching allocator
+keeps freed blocks per stream, so a lane on a new stream every step
+finds none of the last step's blocks and allocates its tensors (the
+pulled weights) with fresh ``cudaMalloc`` calls, which hold up the
+other threads' CUDA calls while they run. A tensor crosses lanes
+explicitly:
 
   * ``publish(t)`` — compute lane, after producing ``t``: waits for the
     current stream, so ``t`` is complete before any wire lane can see it
@@ -27,25 +32,39 @@ On the CPU each of these is a no-op.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
+
+from brpc_tpu_torch.runtime.step_sched import current_lane
 
 
 def _cuda(device) -> bool:
     return device is not None and torch.device(device).type == "cuda"
 
 
-def lane_stream(device):
-    """A zero-arg factory of context managers: each call enters a fresh
-    stream of ``device`` (from torch's stream pool) when it is a CUDA
-    device, and nothing otherwise — one per wire lane."""
-    if not _cuda(device):
-        return contextlib.nullcontext
-    dev = torch.device(device)
+class LaneStreams:
+    """The CUDA streams of one driver's wire lanes: one per lane name,
+    created on first use and kept for the driver's lifetime (nothing on
+    a CPU device)."""
 
-    def ctx():
-        return torch.cuda.stream(torch.cuda.Stream(dev))
-    return ctx
+    def __init__(self, device):
+        self.device = torch.device(device) if _cuda(device) else None
+        self._streams = {}  # lane name -> torch.cuda.Stream
+        self._mu = threading.Lock()
+
+    def ctx(self):
+        """A context manager for ``run_graph``'s ``wire_ctx``: on a wire
+        lane's thread it enters that lane's stream
+        (``step_sched.current_lane()``); ``nullcontext`` on the CPU."""
+        if self.device is None:
+            return contextlib.nullcontext()
+        lane = current_lane()
+        with self._mu:
+            stream = self._streams.get(lane)
+            if stream is None:
+                stream = self._streams[lane] = torch.cuda.Stream(self.device)
+        return torch.cuda.stream(stream)
 
 
 def publish(t: torch.Tensor) -> torch.Tensor:

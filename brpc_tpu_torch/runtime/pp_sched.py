@@ -562,6 +562,7 @@ class PipelineStageDriver:
         self._momenta = {n: torch.zeros_like(p)
                          for n, p in harness.params().items()}
         self._step = 0
+        self._lanes = handoff.LaneStreams(harness.device)
         self.last_trace: Optional[RunTrace] = None
         self.last_stats: Dict[str, float] = {}
 
@@ -610,7 +611,7 @@ class PipelineStageDriver:
             recv_grad=lambda m: port.recv_grad(sid, m))
         _results, trace = run_graph(
             g, overlap=self.overlap,
-            wire_ctx=handoff.lane_stream(h.device) if self.overlap else None)
+            wire_ctx=self._lanes.ctx if self.overlap else None)
         port.flush()
         self.last_trace = trace
 

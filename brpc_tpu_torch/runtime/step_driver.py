@@ -4,19 +4,23 @@ The port of brpc_tpu/runtime/step_driver.py. A training step decomposes
 into per-tensor nodes
 
     forward -> bwd:k (compute lane, top layer first)
-    bwd:k   -> push:k -> opt:k -> pull:k (wire lane)
+    bwd:k   -> push:k (wire lane)
+    push:k  -> opt:k -> pull:k (the ``wire:pull`` lane)
 
 scheduled by :mod:`step_sched`, so the gradient push of layer k (int8
 encode included — the client's ``encoder=`` hook runs at arena-stage time
-on the wire lane) overlaps backward compute of the next layer, and
-next-step pulls overlap the server-side momentum updates of the
-remaining pushes. Pushes go through one bounded :class:`PipelineWindow`
-per step, pulls through ``client.pull`` (one-sided when mapped,
-quantized when negotiated, QoS-stamped, paced). ``overlap=False`` runs
-the SAME nodes serially on one thread — the A/B baseline.
+on the wire lane) overlaps backward compute of the next layer, and the
+confirm and next-step pull of layer k overlap the backward and the
+pushes of the layers below it (the JAX package runs the three on one
+wire lane; there the pulls wait for the last push). Pushes go through
+one bounded :class:`PipelineWindow` per step, which both wire lanes
+drain; pulls through ``client.pull`` (one-sided when mapped, quantized
+when negotiated, QoS-stamped, paced). ``overlap=False`` runs the SAME
+nodes serially on one thread — the A/B baseline.
 
 On CUDA the compute lane runs on the caller's current stream and each
-wire lane on a stream of its own; gradients, pulled weights and masters
+wire lane on a stream of its own, the same one every step
+(``handoff.LaneStreams``); gradients, pulled weights and masters
 cross between them through ``runtime.handoff`` (the compute lane waits
 for its stream after each backward, as the JAX package blocks on each
 gradient; ``record_stream`` on every tensor that changes streams). A
@@ -47,6 +51,7 @@ milliseconds, as named).
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -65,6 +70,9 @@ from brpc_tpu_torch.runtime.tensor import _metrics as _tensor_metrics
 
 _metrics_cache = None
 
+# The wire lane of each step's confirms and pulls.
+_PULL_LANE = "wire:pull"
+
 _STAT_KEYS = ("wall_ms", "compute_ms", "wire_busy_ms", "exposed_comm_ms",
               "overlapped_comm_ms")
 
@@ -73,7 +81,7 @@ def _trace_handoff_ctx(tid: int, sid: int, qos=None, stream=None):
     """The wire-lane context factory both drivers hand to ``run_graph``:
     each lane's thread inherits the step's rpcz trace context, the BULK
     QoS stamp when ``qos`` (a zero-arg context-manager factory) is given,
-    and its own CUDA stream when ``stream`` (``handoff.lane_stream``) is.
+    and its lane's CUDA stream when ``stream`` (``LaneStreams.ctx``) is.
     Restore, don't clear, on exit: in serial mode this wraps the CALLER's
     own thread, whose ambient context must survive the step."""
 
@@ -197,6 +205,7 @@ class OverlappedStepDriver(_Recorder):
         self._params: Dict[str, torch.Tensor] = {}  # placed tensors
         self._raw: Dict[str, torch.Tensor] = {}     # pulled, not placed
         self.versions: Dict[str, int] = {}           # last confirmed
+        self._lanes = handoff.LaneStreams(self.device)
         self._init_stats()
 
     # ---- setup ----
@@ -243,6 +252,10 @@ class OverlappedStepDriver(_Recorder):
         ctx_box: Dict[str, object] = {}
         channel = getattr(self.client, "channel", None)
 
+        # A reply recorded on one wire lane wakes a confirm waiting on the
+        # other (it cannot drain a reply another lane is waiting on).
+        landed = threading.Condition()
+
         def on_push_reply(tag, payload, view):
             view.release()  # push responses carry no tensor
             step_versions[tag] = int(payload.decode())
@@ -285,6 +298,9 @@ class OverlappedStepDriver(_Recorder):
                 if isinstance(e, native.RpcError):
                     self._note_push_error(e)
                 return True
+            finally:
+                with landed:
+                    landed.notify_all()
 
         def make_push(name):
             if win is not None:
@@ -321,6 +337,15 @@ class OverlappedStepDriver(_Recorder):
                 while (name not in step_versions
                        and name not in push_failed and win is not None):
                     if not drain_one_recording():
+                        # The push lane took this reply off the window
+                        # and records it when it lands: within the
+                        # channel's timeout of the call, which began
+                        # before this wait.
+                        with landed:
+                            landed.wait_for(
+                                lambda: (name in step_versions
+                                         or name in push_failed),
+                                timeout=channel.timeout_ms / 1e3)
                         break
                 if name in step_versions:
                     self.versions[name] = step_versions[name]
@@ -344,21 +369,27 @@ class OverlappedStepDriver(_Recorder):
 
         graph = StepGraph()
         # Insertion order IS the serial schedule: forward, every
-        # backward, every push, every confirm, every pull.
+        # backward, every push, then each name's confirm and pull.
+        # Pushes ride the wire lane; confirms and pulls a second one, so
+        # a layer's next version comes back while lower layers still
+        # compute and push.
         graph.add("fwd", _traced("step/fwd", fn_forward), lane=COMPUTE)
         prev = "fwd"
         for name in rev:
             prev = graph.add(f"bwd:{name}",
                              _traced(f"step/bwd:{name}", make_bwd(name)),
                              deps=(prev,), lane=COMPUTE)
-        for stage, before, make in ((("push", "bwd", make_push),
-                                     ("opt", "push", make_opt),
-                                     ("pull", "opt", make_pull))
-                                    if self.client is not None else ()):
+        if self.client is not None:
             for name in rev:
-                graph.add(f"{stage}:{name}",
-                          _traced(f"step/{stage}:{name}", make(name)),
-                          deps=(f"{before}:{name}",), lane=WIRE)
+                graph.add(f"push:{name}",
+                          _traced(f"step/push:{name}", make_push(name)),
+                          deps=(f"bwd:{name}",), lane=WIRE)
+            for name in rev:
+                for stage, before, make in (("opt", "push", make_opt),
+                                            ("pull", "opt", make_pull)):
+                    graph.add(f"{stage}:{name}",
+                              _traced(f"step/{stage}:{name}", make(name)),
+                              deps=(f"{before}:{name}",), lane=_PULL_LANE)
 
         failure: Optional[StepFailure] = None
         trace = None
@@ -366,8 +397,7 @@ class OverlappedStepDriver(_Recorder):
             tid, sid = tracing.current_trace()
             wire_ctx = _trace_handoff_ctx(
                 tid, sid, qos=getattr(self.client, "_qos_bulk", None),
-                stream=(handoff.lane_stream(self.device) if self.overlap
-                        else None))
+                stream=self._lanes.ctx if self.overlap else None)
             try:
                 _results, trace = run_graph(graph, overlap=self.overlap,
                                             wire_ctx=wire_ctx)
@@ -494,6 +524,7 @@ class CollectiveStepDriver(_Recorder):
         self.device = harness.device
         self._params: Dict[str, torch.Tensor] = {}   # fp32 masters
         self._momenta: Dict[str, torch.Tensor] = {}
+        self._lanes = handoff.LaneStreams(self.device)
         # track mode: {name: [(chunk_idx, (offset, length)), ...]} of the
         # last step, in firing order.
         self.last_chunk_log: Dict[str, list] = {}
@@ -629,8 +660,8 @@ class CollectiveStepDriver(_Recorder):
             # No qos factory: the collective stamps its own BULK QoS per
             # peer inside the hop sends.
             wire_ctx = _trace_handoff_ctx(
-                tid, sid, stream=(handoff.lane_stream(self.device)
-                                  if self.overlap else None))
+                tid, sid,
+                stream=self._lanes.ctx if self.overlap else None)
             try:
                 _results, trace = run_graph(graph, overlap=self.overlap,
                                             wire_ctx=wire_ctx)

@@ -55,6 +55,24 @@ COMPUTE = "compute"
 WIRE = "wire"
 _LANES = (COMPUTE, WIRE)  # the closed set PLUS "wire:<name>" extensions
 
+_thread_lane = threading.local()
+
+
+def current_lane() -> Optional[str]:
+    """The wire lane the calling thread runs for ``run_graph`` (set
+    before the thread enters ``wire_ctx``); None on any other thread."""
+    return getattr(_thread_lane, "lane", None)
+
+
+def _union_s(spans) -> float:
+    """Total length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
 
 def _valid_lane(lane: str) -> bool:
     """``compute``, ``wire``, or a named wire lane ``wire:<suffix>`` —
@@ -147,11 +165,14 @@ class RunTrace:
     step-breakdown metrics read.
 
     ``events``: ``[(name, lane, start_s, end_s), ...]`` in completion
-    order (monotonic clock). ``wire_busy_s`` is total wire-lane node
-    time summed across EVERY wire lane (``lane_busy_s`` splits it per
-    named lane); ``exposed_wait_s`` is the time the CALLER's thread
-    spent blocked with no compute node ready (including the end-of-step
-    join) — the step's EXPOSED communication. Overlapped communication
+    order (monotonic clock). ``wire_busy_s`` is the time at least one
+    wire lane was running a node: the union of every wire lane's node
+    intervals, so two lanes busy at once count once (with one lane it is
+    the sum of its node times; the JAX package sums over lanes).
+    ``lane_busy_s`` holds each named lane's own sum. ``exposed_wait_s``
+    is the time the CALLER's thread spent blocked with no compute node
+    ready (including the end-of-step join) — the step's EXPOSED
+    communication. Overlapped communication
     is ``wire_busy_s - exposed_wait_s`` clamped at zero: wire time that
     ran in compute's shadow.
 
@@ -312,7 +333,6 @@ def run_graph(graph: StepGraph, overlap: bool = True,
             with lock:
                 trace.events.append((node.name, lane, t0, t1))
                 if lane != COMPUTE:
-                    trace.wire_busy_s += t1 - t0
                     trace.lane_busy_s[lane] = (
                         trace.lane_busy_s.get(lane, 0.0) + (t1 - t0))
                 else:
@@ -320,6 +340,7 @@ def run_graph(graph: StepGraph, overlap: bool = True,
                 _finish_locked(node, result, exc)
 
     def _wire_main(lane: str) -> None:
+        _thread_lane.lane = lane
         try:
             with ctx():
                 _run_lane(lane, count_wait=False)
@@ -371,6 +392,8 @@ def run_graph(graph: StepGraph, overlap: bool = True,
         ends = [e for (_n, lane, _s, e) in trace.events if lane == ln]
         trace.lane_join_s[ln] = max(0.0, (max(ends) if ends else t_join)
                                     - t_join)
+    trace.wire_busy_s = _union_s([(s, e) for (_n, lane, s, e)
+                                  in trace.events if lane != COMPUTE])
     trace.wall_s = time.monotonic() - t_start
     if failed:
         raise StepFailure(failed, sorted(cancelled),

@@ -826,6 +826,9 @@ class PipelineWindow:
         self.on_reply = on_reply
         self.on_error = on_error
         self._q: deque = deque()  # (tag, future, arena_off, arena_len)
+        # Guards taking the oldest call: a submitting thread and a
+        # draining one may complete calls at once, each its own.
+        self._mu = threading.Lock()
         self._results: list = []
         _pipeline_gauge()
 
@@ -839,9 +842,11 @@ class PipelineWindow:
         drains exactly until push k's reply lands instead of flushing the
         whole window. A failure carries its call's tag as
         ``e.pipeline_tag``."""
-        if not self._q:
-            return False
-        self._complete_oldest()
+        with self._mu:
+            if not self._q:
+                return False
+            entry = self._q.popleft()
+        self._complete(entry)
         return True
 
     def submit(self, service_method: str, array=None, request: bytes = b"",
@@ -851,7 +856,7 @@ class PipelineWindow:
         (wire_uint8, header_bytes) | None`` quantizes at stage time; None
         rides raw."""
         while len(self._q) >= self.window:
-            self._complete_oldest()
+            self.complete_one()
         off = length = 0
         if array is not None:
             with _stage("arena_stage"):
@@ -876,10 +881,10 @@ class PipelineWindow:
         _pipeline_inflight_add(1)
         self._q.append((tag, fut, off, length))
 
-    def _complete_oldest(self) -> None:
+    def _complete(self, entry) -> None:
         # Failures carry the failed call's tag as ``e.pipeline_tag`` so
         # callers can attribute them per tensor.
-        tag, fut, off, length = self._q.popleft()
+        tag, fut, off, length = entry
         try:
             try:
                 with _stage("wire_wait"):
@@ -906,8 +911,8 @@ class PipelineWindow:
             raise
 
     def flush(self) -> list:
-        while self._q:
-            self._complete_oldest()
+        while self.complete_one():
+            pass
         out, self._results = self._results, []
         return out
 
@@ -949,6 +954,7 @@ class TensorChannel:
                                                max_retry)
         if not self._h:
             raise RuntimeError(f"tensor channel init to {addr} failed")
+        self.timeout_ms = timeout_ms  # each call's deadline, retries included
         native._LIVE_CHANNELS.add(self)
         self.arena = arena if arena is not None else TensorArena(256 << 20)
 

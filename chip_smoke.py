@@ -11,8 +11,9 @@ checkout. Phases, each fatal on failure:
   2. kernels vs plain PyTorch, on the card: K1 and K2 at every distinct
      shape of the parameter-server path (GPT-2 small) plus a ragged and a
      1-D one, bit-identical; K3 (flash carry) at one Llama 3 8B attention
-     layer and at bench.py's flash point plus edge cases, within stated
-     tolerances; times at the largest shapes beside the bound and a
+     layer (bf16, and fp32 on its CUDA-core path) and at bench.py's flash
+     point plus edge cases, within stated tolerances; times at the
+     largest shapes beside the bound and a
      library call where one computes the same function (K2 int8's,
      ``codes.view(nb, block) * scale.view(nb, 1)``, held bit for bit);
      K1 in fp16 and bf16 at wte (and a ragged and an unaligned shape), bit
@@ -36,8 +37,11 @@ checkout. Phases, each fatal on failure:
      against the ketama plan, launches against the plan's counts;
   6. the training plane at the GPT-2 small MLP stack (768 -> [3072 ->
      768] x 12, 24 layers, 56,623,104 fp32 weights, a batch of 8 x 1024
-     tokens): the overlapped parameter-server driver (serial, overlapped,
-     int8), the collective data-parallel driver over two CollectiveGroup
+     tokens): the overlapped parameter-server driver, serial and
+     overlapped against a ParameterServer in a process of its own with
+     one-sided pulls (the JAX package's set-up; its state and its K1
+     count shipped back from that process), int8 against a server in this
+     process; the collective data-parallel driver over two CollectiveGroup
      members (raw, int8 with and without error feedback, tracked), a
      2-stage 1F1B pipeline over WirePipe and 2-way tensor parallelism
      (depth cut to 2 blocks); each against a plain replay, bit for bit
@@ -122,6 +126,9 @@ PUSHES = 3
 _HBM_RATE = (("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 # Dense bf16 tensor-core peaks, FLOP/s (the same data sheets).
 _BF16_RATE = (("H100 PCIe", 756e12), ("H100", 989e12))
+# fp32 peaks outside the tensor cores, FLOP/s (the same data sheets): K3's
+# fp32 path (flash_simt_kernel) runs on the CUDA cores.
+_F32_RATE = (("H100 PCIe", 51e12), ("H100", 67e12))
 # Meta's Llama 3 8B (meta-llama/Meta-Llama-3-8B config.json): 32 attention
 # heads, 8 kv heads, hidden 4096 (head dim 128), 8192 positions; one
 # attention layer at full context, causal.
@@ -561,10 +568,12 @@ def _flash_case(label, q, k, v, carry, offsets, causal) -> float:
     return err_o
 
 
-def _flash_timing(q, k, v, causal, rate, flops_rate) -> dict:
+def _flash_timing(q, k, v, causal, rate, flops_rate, reps=10,
+                  inner=3) -> dict:
     """kernel / plain / SDPA ms at a fresh-carry full pass, and the bound:
-    4*d FLOP per (query, legal key) pair (q.k and p.v) at the card's dense
-    bf16 peak, or the bytes (q, k, v and the carries in; carries out)."""
+    4*d FLOP per (query, legal key) pair (q.k and p.v) at ``flops_rate``
+    (the card's peak for the input type), or the bytes (q, k, v and the
+    carries in; carries out)."""
     import torch
     import torch.nn.functional as F
 
@@ -574,7 +583,7 @@ def _flash_timing(q, k, v, causal, rate, flops_rate) -> dict:
     m, l, acc = fa.flash_init(b, h, s, d, device=q.device)
     ms = cuda_ms(lambda: fa.flash_attention_carry(q, k, v, m, l, acc, (0, 0),
                                                   causal=causal),
-                 reps=10, inner=3)
+                 reps=reps, inner=inner)
     tile = fa.kernel_tile_k(q, k, v, acc)
     plain = cuda_ms(lambda: fa.flash_carry_reference(
         q, k, v, m, l, acc, (0, 0), causal=causal, block_k=tile,
@@ -582,7 +591,7 @@ def _flash_timing(q, k, v, causal, rate, flops_rate) -> dict:
         reps=3, inner=1, warm=1)
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal, enable_gqa=k.shape[1] != h),
-        reps=10, inner=3)
+        reps=reps, inner=inner)
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4.0 * b * h * d * pairs
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) + 2 * sum(
@@ -594,7 +603,8 @@ def _flash_timing(q, k, v, causal, rate, flops_rate) -> dict:
             "tflops": flops / ms / 1e9}
 
 
-def flash_vs_plain(seed: int, rate: float, flops_rate: float) -> dict:
+def flash_vs_plain(seed: int, rate: float, flops_rate: float,
+                   f32_rate: float) -> dict:
     import torch
 
     from brpc_tpu_torch.ops import flash_attention as fa
@@ -611,6 +621,18 @@ def flash_vs_plain(seed: int, rate: float, flops_rate: float) -> dict:
         timing[label] = _flash_timing(q, k, v, cfg["causal"], rate,
                                       flops_rate)
         del q, k, v
+    # fp32 (flash_simt_kernel) at the Llama layer: held against its plain
+    # version there, timed beside SDPA in fp32; bound by the fp32 peak
+    # outside the tensor cores.
+    c = LLAMA3_8B_ATTN
+    q, k, v = _qkv(c["b"], c["h"], c["hkv"], c["s"], c["d"], f32, seed)
+    f32_err = _flash_case("Llama 3 8B layer, fp32", q, k, v,
+                          fa.flash_init(c["b"], c["h"], c["s"], c["d"],
+                                        device="cuda"), (0, 0), c["causal"])
+    errs.append(f32_err)
+    timing["Llama 3 8B layer, fp32"] = _flash_timing(
+        q, k, v, c["causal"], rate, f32_rate, reps=3, inner=1)
+    del q, k, v
     # fp32 on the SIMT path: first exactly the two calls dryrun_multichip(1)
     # makes (the single-head ring, non-causal, and the GQA causal ring; sq
     # and sk both under one tile, so keys past sk are masked with causal
@@ -654,6 +676,7 @@ def flash_vs_plain(seed: int, rate: float, flops_rate: float) -> dict:
                                 fa.flash_init(b, h, s, d, device="cuda"),
                                 (24, 0), True))
     main, second = timing["Llama 3 8B layer"], timing["bench.py flash point"]
+    f32_t = timing["Llama 3 8B layer, fp32"]
     for label, t in timing.items():
         log(f"K3 {label}: kernel_ms={t['ms']:.4f} plain_ms="
             f"{t['plain_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
@@ -672,7 +695,15 @@ def flash_vs_plain(seed: int, rate: float, flops_rate: float) -> dict:
                                       "d128 bf16 non-causal",
                              **{key: second[key] for key in (
                                  "ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms")}}}
+                                 "library_ms")}},
+            "f32_shape": {"shape": "Llama 3 8B attention layer, b1 h32 hkv8 "
+                                   "s8192 d128 fp32 causal "
+                                   "(flash_simt_kernel); bound at the fp32 "
+                                   f"peak {f32_rate / 1e12:.0f} TFLOP/s",
+                          "max_abs_err": f32_err,
+                          **{key: f32_t[key] for key in (
+                              "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")}}}
 
 
 def _flash_build_report() -> str:
@@ -1542,6 +1573,7 @@ def training_plane(seed: int, smi: str) -> dict:
     from brpc_tpu_torch.models.tp_layers import LocalRing, TPShardedMLP
     from brpc_tpu_torch.ops import fused_update as fu
     from brpc_tpu_torch.ops import quantize as qz
+    from brpc_tpu_torch.parallel.ps_process import ServerProcess
     from brpc_tpu_torch.runtime import codec
     from brpc_tpu_torch.runtime.param_server import (ParameterClient,
                                                      ParameterServer)
@@ -1610,13 +1642,25 @@ def training_plane(seed: int, smi: str) -> dict:
         # -- 1. the overlapped parameter-server driver
         steps = PLANE["ps_steps"]
 
-        def ps_run(label, overlap, cname):
-            ps = ParameterServer(init, lr=LR, momentum=BETA,
-                                 arena=TensorArena(256 << 20), device=dev)
-            cl = ParameterClient(f"tpu://127.0.0.1:{ps.start()}",
-                                 arena=TensorArena(256 << 20), codec=cname,
-                                 device=dev)
+        def ps_run(label, overlap, cname, own):
+            """One driver run of ``steps`` steps. ``own``: the server in a
+            process of its own with one-sided pulls (the JAX package's
+            set-up, bench.py's _STEP_CHILD); else in this process, pulls
+            over RPC. -> (steps, the server's state, launches)."""
+            if own:
+                srv = ServerProcess(init, lr=LR, momentum=BETA, device=dev,
+                                    arena_bytes=1 << 30, oneside=True,
+                                    timeout_s=900)
+                addr = srv.addr
+            else:
+                srv = ParameterServer(init, lr=LR, momentum=BETA,
+                                      arena=TensorArena(256 << 20),
+                                      device=dev)
+                addr = f"tpu://127.0.0.1:{srv.start()}"
+            cl = None
             try:
+                cl = ParameterClient(addr, arena=TensorArena(256 << 20),
+                                     codec=cname, device=dev, oneside=own)
                 cl.meta()
 
                 def run():
@@ -1633,22 +1677,39 @@ def training_plane(seed: int, smi: str) -> dict:
                                     dict(d.last_stats)))
                     return out
 
-                # K2: the client's prime pulls, then per step the server
-                # widens every int8 push and the client every int8 pull.
-                k2 = len(names) * (1 + 2 * steps) if cname else 0
-                out, got = _counted(label, run, {
-                    "brpc_fused_momentum": len(names) * steps,
-                    "brpc_dequant_int8": k2})
+                # K1 on the server; K2: the client's prime pulls, then per
+                # step the server widens every int8 push and the client
+                # every int8 pull.
+                want = {"brpc_fused_momentum": len(names) * steps,
+                        "brpc_dequant_int8": (len(names) * (1 + 2 * steps)
+                                              if cname else 0)}
+                if own:
+                    # The server's launches are its process's own counts,
+                    # set to 0 just before the run and read just after;
+                    # this process launches none.
+                    srv.reset_launches()
+                    out, _ = _counted(label, run, {})
+                    got = {k: n for k, n in srv.launches().items() if n}
+                    log(f"  launches in the server process {got}")
+                    if _full(got) != _full(want):
+                        fail(f"{label}: the server process launched {got}, "
+                             f"expected {want}")
+                else:
+                    out, got = _counted(label, run, want)
                 for i, (dt, loss, st) in enumerate(out):
                     log(_step_line(i + 1, dt, loss, st) + f" ({smi})")
-                state = ps.state()
+                state = srv.state()
                 if set(state.versions.values()) != {steps}:
                     fail(f"{label}: versions {set(state.versions.values())}")
                 return out, state, got
             finally:
-                cl.close()
-                ps.stop()
-                ps.server.close()
+                if cl is not None:
+                    cl.close()
+                if own:
+                    srv.close()
+                else:
+                    srv.stop()
+                    srv.server.close()
 
         ref_losses, ref_states = replay(steps)
         # Normal / sqrt(fan-in) weights keep a ReLU stack's second moment
@@ -1664,12 +1725,15 @@ def training_plane(seed: int, smi: str) -> dict:
         del head_in
         for label, overlap in (("serial", False), ("overlapped", True)):
             out, state, got = ps_run(
-                f"parameter-server driver, {label}, {steps} steps", overlap,
-                None)
+                f"parameter-server driver, {label}, {steps} steps, server "
+                "in a process of its own, one-sided pulls", overlap, None,
+                True)
             launches[f"ps_driver_{label}"] = got
-            _equal_state(f"ps driver {label} params", state.params,
+            _equal_state(f"ps driver {label} params",
+                         {k: v.to(dev) for k, v in state.params.items()},
                          ref_states[-1][0])
-            _equal_state(f"ps driver {label} momenta", state.momenta,
+            _equal_state(f"ps driver {label} momenta",
+                         {k: v.to(dev) for k, v in state.momenta.items()},
                          ref_states[-1][1])
             losses = [loss for _dt, loss, _st in out]
             if losses != ref_losses:
@@ -1682,7 +1746,8 @@ def training_plane(seed: int, smi: str) -> dict:
             "(bit for bit, momenta included); losses "
             + ", ".join(f"{v:.6f}" for v in ref_losses))
         out, state, got = ps_run(f"parameter-server driver, int8, {steps} "
-                                 "steps", True, "int8")
+                                 "steps, server in this process", True,
+                                 "int8", False)
         launches["ps_driver_int8"] = got
         q_losses, q_states = replay(steps, "int8")
         _equal_state("ps driver int8 params", state.params, q_states[-1][0])
@@ -3388,7 +3453,8 @@ def main() -> int:
     t0 = time.monotonic()
     rows = kernels_vs_plain(args.seed, rate)
     rows.append(flash_vs_plain(args.seed, rate,
-                               published_rate(name, _BF16_RATE)))
+                               published_rate(name, _BF16_RATE),
+                               published_rate(name, _F32_RATE)))
     log(f"== phase 2 (kernels vs plain) {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     by_path = {"param_server": main_path(args.seed)}

@@ -588,6 +588,7 @@ def test_overlapped_driver_hides_wire_time_on_the_card(cuda):
     from brpc_tpu_torch.runtime.param_server import (ParameterClient,
                                                      ParameterServer)
     from brpc_tpu_torch.runtime.step_driver import OverlappedStepDriver
+    from brpc_tpu_torch.runtime.step_sched import current_lane
 
     sizes = [512, 2048, 2048, 512]
     h = LayeredMLP(sizes, device=cuda)
@@ -614,6 +615,77 @@ def test_overlapped_driver_hides_wire_time_on_the_card(cuda):
         assert torch.equal(so.params[k], ss.params[k])
     assert to["overlapped_comm_ms"] > 0.0
     assert ts_["overlapped_comm_ms"] == 0.0
+
+
+def test_overlapped_driver_keeps_its_lane_stream_across_steps(cuda):
+    """Each wire lane runs on one stream for the driver's lifetime, so
+    the caching allocator hands each step's pulled weights the blocks the
+    last step freed: after three warm steps, three more reserve no
+    device memory. The server runs in a process of its own, with one-sided
+    pulls, as chip_smoke.py phase 6 runs it; its state equals an
+    overlap=False run against a server in this process, bit for bit."""
+    from brpc_tpu_torch.models.tensor_service import LayeredMLP
+    from brpc_tpu_torch.parallel.ps_process import ServerProcess
+    from brpc_tpu_torch.runtime import handoff
+    from brpc_tpu_torch.runtime.param_server import (ParameterClient,
+                                                     ParameterServer)
+    from brpc_tpu_torch.runtime.step_driver import OverlappedStepDriver
+    from brpc_tpu_torch.runtime.step_sched import current_lane
+
+    sizes = [512, 2048, 2048, 512]
+    h = LayeredMLP(sizes, device=cuda)
+    x, y = h.data(4096)
+    init = {k: v.cpu().numpy() for k, v in h.init_params().items()}
+    entered = []  # (lane, stream), one per wire lane per step
+    orig = handoff.LaneStreams.ctx
+
+    def ctx(self):
+        cm = orig(self)
+        entered.append((current_lane(), cm.stream))
+        return cm
+
+    with ServerProcess(init, device=cuda, oneside=True, timeout_s=300) as srv:
+        cl = ParameterClient(srv.addr, device=cuda, oneside=True)
+        try:
+            d = OverlappedStepDriver(cl, h, overlap=True)
+            d.prime()
+            handoff.LaneStreams.ctx = ctx
+            try:
+                losses = [d.step(x, y) for _ in range(3)]
+                torch.cuda.synchronize()
+                reserved = torch.cuda.memory_reserved(cuda)
+                losses += [d.step(x, y) for _ in range(3)]
+                torch.cuda.synchronize()
+                assert torch.cuda.memory_reserved(cuda) == reserved
+            finally:
+                handoff.LaneStreams.ctx = orig
+        finally:
+            cl.close()
+        own = srv.state()
+    # Two wire lanes (pushes; confirms and pulls), each entered at the
+    # start of each of the 6 steps: each lane on one stream of its own,
+    # the same every step.
+    assert len(entered) == 12
+    by_lane = {}
+    for lane, stream in entered:
+        by_lane.setdefault(lane, set()).add(stream)
+    assert set(by_lane) == {"wire", "wire:pull"}
+    assert all(len(v) == 1 for v in by_lane.values())
+    assert by_lane["wire"] != by_lane["wire:pull"]
+    ps = ParameterServer(init, device=cuda)
+    cl = ParameterClient(f"tpu://127.0.0.1:{ps.start()}", device=cuda)
+    try:
+        d = OverlappedStepDriver(cl, h, overlap=False)
+        d.prime()
+        assert [d.step(x, y) for _ in range(6)] == losses
+        ref = ps.state()
+    finally:
+        cl.close()
+        ps.stop()
+    assert own.versions == ref.versions
+    for k in ref.params:
+        assert torch.equal(own.params[k], ref.params[k].cpu())
+        assert torch.equal(own.momenta[k], ref.momenta[k].cpu())
 
 
 # LayeredMLP over a client x shard mesh on the card: the wire rank (rank 0)

@@ -4,7 +4,9 @@ Pure half: the port's ``run_graph`` runs the same graphs to the same
 results serial and overlapped, cancels exactly a failed node's
 dependents, surfaces a dead wire lane, and really runs a compute node
 and a wire node at once (a handshake that can only finish concurrently —
-the span overlap read off ``RunTrace``, no timing threshold).
+the span overlap read off ``RunTrace``, no timing threshold); each wire
+thread knows its lane, and two wire lanes busy at once count once in
+the step's wire time.
 
 Drivers, on CPU tensors (the plain K1/K2 versions):
 
@@ -16,6 +18,17 @@ Drivers, on CPU tensors (the plain K1/K2 versions):
   * inside the port, overlapped == serial bit for bit, raw and int8;
   * a parameter retired under a running driver: ``PartialPushError``
     with the other layers' versions applied;
+  * the top layer's pull does not wait behind pushes (confirms and
+    pulls ride a wire lane of their own), and the two lanes share the
+    push window under a 10 us switch interval;
+  * one overlapped step's rpcz dump (the JAX package's
+    ``test_rpcz_shows_push_inside_compute_shadow``): a push span inside a
+    lower layer's backward span, the step span's exposed/overlapped
+    communication and the push spans' ``arena_stage``;
+  * the server in a process of its own (``parallel.ps_process``) ==
+    the server in this process, bit for bit (losses, params, momenta,
+    versions), serial and overlapped; the server process is gone after a
+    trainer that raised, after its caller died, and at its time limit;
   * ``CollectiveStepDriver`` on a ``LocalRing``: the port against the
     JAX driver at the same tolerance, started mid-trajectory from a state
     carried across with ``runtime.state``; ``track=True`` == untracked
@@ -141,6 +154,58 @@ def test_wire_lane_death_surfaces_as_failure():
     assert set(ei.value.cancelled) == {"w", "after"}
 
 
+def test_each_wire_thread_knows_its_lane():
+    """``current_lane()`` names the lane on a wire thread, inside its
+    ``wire_ctx`` and its nodes (what keys ``handoff.LaneStreams``), and
+    is None on the caller's thread."""
+    seen = []
+
+    class Ctx:
+        def __enter__(self):
+            seen.append(("ctx", ts.current_lane()))
+
+        def __exit__(self, *a):
+            return False
+
+    g = ts.StepGraph()
+    g.add("c", lambda d: ts.current_lane())
+    for lane in (ts.WIRE, "wire:pull", "wire:x"):
+        g.add(f"n:{lane}", lambda d: ts.current_lane(), deps=("c",),
+              lane=lane)
+    done, _trace = ts.run_graph(g, overlap=True, wire_ctx=Ctx)
+    assert done == {"c": None, "n:wire": "wire", "n:wire:pull": "wire:pull",
+                    "n:wire:x": "wire:x"}
+    assert sorted(seen) == [("ctx", "wire"), ("ctx", "wire:pull"),
+                            ("ctx", "wire:x")]
+    assert ts.current_lane() is None
+
+
+def test_two_busy_wire_lanes_count_once():
+    """Two wire lanes busy at the same time count once in ``wire_busy_s``
+    (the union of their node intervals), each lane in full in
+    ``lane_busy_s``; so overlapped communication never exceeds the
+    step."""
+    both = threading.Barrier(2)
+
+    def wire(d):
+        both.wait(10)  # both lanes' nodes run at once from here
+        time.sleep(0.05)
+
+    g = ts.StepGraph()
+    g.add("w1", wire, lane=ts.WIRE)
+    g.add("w2", wire, lane="wire:pull")
+    g.add("c", lambda d: time.sleep(0.08))
+    _done, trace = ts.run_graph(g, overlap=True)
+    assert trace.overlapped("w1", "w2")
+    lanes = trace.lane_busy_s
+    assert set(lanes) == {ts.WIRE, "wire:pull"}
+    assert max(lanes.values()) <= trace.wire_busy_s < sum(lanes.values())
+    spans = [trace.span("w1"), trace.span("w2")]
+    assert trace.wire_busy_s == pytest.approx(
+        max(e for _s, e in spans) - min(s for s, _e in spans), abs=1e-9)
+    assert trace.overlapped_comm_s() <= trace.wall_s
+
+
 # ---------------------------------------------------------------------------
 # Drivers over a live parameter server.
 # ---------------------------------------------------------------------------
@@ -238,7 +303,7 @@ def test_overlapped_driver_matches_jax(drv_env):
                                    atol=1e-6)
     assert d.totals["steps"] == 3
     lanes = {lane for _n, lane, _s, _e in d.last_trace.events}
-    assert lanes == {ts.COMPUTE, ts.WIRE}
+    assert lanes == {ts.COMPUTE, ts.WIRE, "wire:pull"}
 
 
 @pytest.mark.parametrize("codec", [None, "int8"], ids=["raw", "int8"])
@@ -283,6 +348,274 @@ def test_midstep_push_failure_salvages_partially(drv_env):
         assert f"pull:{victim}" in sf.cancelled
     finally:
         _close(cl, ps)
+
+
+def test_top_layer_pull_does_not_wait_behind_pushes(drv_env):
+    """Confirms and pulls ride a wire lane of their own: the top layer's
+    next version comes back while a push still waits. Here the middle
+    layer's push waits until the lowest backward is done, so the lowest
+    layer's push is ready behind it, and that push waits for the top
+    layer's pull; on one wire lane the pull would queue behind it and
+    the wait would run out."""
+    from brpc_tpu_torch.runtime.step_driver import OverlappedStepDriver
+
+    params, batches = _jax_init(SIZES)
+    ps, cl, h = _torch_pair(params)
+    top, mid, bottom = h.names[-1], h.names[1], h.names[0]
+    pulled_top, bottom_done, seen = threading.Event(), threading.Event(), []
+    real_pull, real_bwd, real_enc = cl.pull, h.backward, cl._grad_encoder
+
+    def pull(name, *a, **kw):
+        out = real_pull(name, *a, **kw)
+        if name == top:
+            pulled_top.set()
+        return out
+
+    def backward(ctx, name):
+        out = real_bwd(ctx, name)
+        if name == bottom:
+            bottom_done.set()
+        return out
+
+    def grad_encoder(name):  # runs on the push's lane, before its submit
+        if name == mid:
+            assert bottom_done.wait(10)
+        if name == bottom:
+            seen.append(pulled_top.wait(10))
+        return real_enc(name)
+
+    cl.pull, h.backward, cl._grad_encoder = pull, backward, grad_encoder
+    try:
+        d = OverlappedStepDriver(cl, h, overlap=True, window=4)
+        d.prime()
+        x, y = (torch.tensor(a) for a in batches[0])
+        d.step(x, y)
+    finally:
+        _close(cl, ps)
+    assert seen == [True]
+    assert d.versions == {n: 1 for n in h.names}
+
+
+def test_two_lanes_share_the_window_under_a_short_switch_interval(
+        drv_env):
+    """Both wire lanes take calls off one PipelineWindow: with a window
+    of 1 every push drains the one before it on the push lane while the
+    confirms drain on the other, and a 10 us switch interval interleaves
+    them; 10 steps land every version once and equal the serial run."""
+    import sys
+
+    params, batches = _jax_init((24, 32, 32, 32, 32, 16))
+    batches = batches * 3
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        lo, so, do = _within(120, lambda: _torch_run(
+            params, batches, overlap=True, steps=10, window=1))
+    finally:
+        sys.setswitchinterval(old)
+    ls, ss, _ds = _torch_run(params, batches, overlap=False, steps=10,
+                             window=1)
+    assert lo == ls
+    for n in so:
+        assert so[n].tobytes() == ss[n].tobytes(), n
+    assert do.totals["steps"] == 10
+
+
+def test_rpcz_shows_push_inside_compute_shadow(drv_env):
+    """One overlapped step's rpcz dump has a push span whose interval sits
+    inside a LOWER layer's backward span (backward runs top-down, so
+    lower layers compute later), the step span carries the exposed /
+    overlapped communication, and the push spans their ``arena_stage``.
+    rpcz goes on after this process's first server has started (a
+    process that enables it before dies at that start)."""
+    from brpc_tpu_torch.observability import tracing
+    from brpc_tpu_torch.runtime.step_driver import OverlappedStepDriver
+
+    params, _ = _jax_init((64, 128, 128, 128, 32))
+    ps, client, h = _torch_pair(params)
+    was_on = tracing.rpcz_enabled()
+    tracing.rpcz_enable(True)
+    old_n = tracing.rpcz_sample_1_in_n()
+    tracing.rpcz_set_sample_1_in_n(1)
+    try:
+        driver = OverlappedStepDriver(client, h, overlap=True, window=4)
+        driver.prime()
+        x, y = h.data(64, seed=400)
+        driver.step(x, y)
+        by_name = {}
+        for s in tracing.dump_rpcz():
+            by_name.setdefault(s["service_method"], s)
+    finally:
+        tracing.rpcz_set_sample_1_in_n(old_n)
+        tracing.rpcz_enable(was_on)
+        _close(client, ps)
+    step_span = by_name.get("train_step")
+    assert step_span is not None, f"no step span in {sorted(by_name)}"
+    notes = " ".join(step_span.get("annotations", []))
+    assert "exposed_comm=" in notes and "overlapped_comm=" in notes
+    overlapped_pairs = []
+    for k, pushed in enumerate(h.names):
+        push = by_name.get(f"step/push:{pushed}")
+        if push is None:
+            continue
+        for lower in h.names[:k]:
+            bwd = by_name.get(f"step/bwd:{lower}")
+            if bwd is not None and (push["start_us"] < bwd["end_us"]
+                                    and bwd["start_us"] < push["end_us"]):
+                overlapped_pairs.append((pushed, lower))
+    assert overlapped_pairs, (
+        "no push span overlapped a later layer's compute span: "
+        + str({n: (s["start_us"], s["end_us"])
+               for n, s in by_name.items() if n.startswith("step/")}))
+    push_notes = " ".join(" ".join(s.get("annotations", []))
+                          for n, s in by_name.items()
+                          if n.startswith("step/push:"))
+    assert "arena_stage=" in push_notes
+
+
+# ---------------------------------------------------------------------------
+# The server in a process of its own.
+# ---------------------------------------------------------------------------
+
+def _within(seconds, fn):
+    """``fn()`` under a time limit of its own: run on a thread, which
+    must finish within ``seconds``; returns its result."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    assert not t.is_alive(), f"still running after its {seconds} s limit"
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def _gone(pid: int) -> bool:
+    """The process has exited (a zombie waiting for its reaper counts)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+def _drive(addr, h, batches, overlap, steps=3):
+    from brpc_tpu_torch.runtime.param_server import ParameterClient
+    from brpc_tpu_torch.runtime.step_driver import OverlappedStepDriver
+
+    cl = ParameterClient(addr, device="cpu")
+    try:
+        d = OverlappedStepDriver(cl, h, overlap=overlap, window=4)
+        d.prime()
+        return [d.step(torch.tensor(x), torch.tensor(y))
+                for x, y in batches[:steps]]
+    finally:
+        cl.close()
+
+
+@pytest.mark.parametrize("overlap", [False, True],
+                         ids=["serial", "overlapped"])
+def test_own_process_server_equals_in_process(drv_env, overlap):
+    from brpc_tpu_torch.models.tensor_service import LayeredMLP
+    from brpc_tpu_torch.parallel.ps_process import ServerProcess
+
+    params, batches = _jax_init(SIZES)
+    h = LayeredMLP(SIZES, device="cpu")
+
+    def own():
+        with ServerProcess(params, lr=LR, momentum=MU, device="cpu",
+                           timeout_s=60) as srv:
+            losses = _drive(srv.addr, h, batches, overlap)
+            return losses, srv.state()
+
+    losses, state = _within(60, own)
+    ps, cl, _h = _torch_pair(params)
+    cl.close()
+    try:
+        ref = _drive(f"tpu://127.0.0.1:{ps.port}", h, batches, overlap)
+        ref_state = ps.state()
+    finally:
+        ps.stop()
+    assert losses == ref
+    assert state.versions == ref_state.versions == {n: 3 for n in h.names}
+    for n in h.names:
+        assert torch.equal(state.params[n], ref_state.params[n]), n
+        assert torch.equal(state.momenta[n], ref_state.momenta[n]), n
+
+
+def test_server_process_is_gone_after_the_trainer_raises(drv_env):
+    from brpc_tpu_torch.models.tensor_service import LayeredMLP
+    from brpc_tpu_torch.parallel.ps_process import ServerProcess
+
+    params, batches = _jax_init(SIZES)
+    h = LayeredMLP(SIZES, device="cpu")
+    pids = []
+
+    def trainer_fails():
+        with pytest.raises(RuntimeError, match="trainer failed"):
+            with ServerProcess(params, lr=LR, momentum=MU, device="cpu",
+                               timeout_s=60) as srv:
+                pids.append(srv.pid)
+                _drive(srv.addr, h, batches, True, steps=1)
+                raise RuntimeError("trainer failed")
+
+    _within(60, trainer_fails)
+    assert pids and _gone(pids[0])
+
+
+def test_server_process_dies_with_its_caller(drv_env, tmp_path):
+    """A caller that exits without closing (os._exit, as after a crash):
+    the server process sees its command pipe end and stops."""
+    import subprocess
+    import sys
+
+    from conftest import ROOT
+
+    script = tmp_path / "caller.py"
+    script.write_text(
+        "import os, sys\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        "import numpy as np\n"
+        "from brpc_tpu_torch.parallel.ps_process import ServerProcess\n"
+        "srv = ServerProcess({'w': np.ones((4, 4), np.float32)},\n"
+        "                    device='cpu', timeout_s=120)\n"
+        "print(srv.pid, flush=True)\n"
+        "os._exit(3)\n")
+
+    def run():
+        out = subprocess.run([sys.executable, str(script)],
+                             capture_output=True, text=True, timeout=60)
+        assert out.returncode == 3, out.stderr[-2000:]
+        pid = int(out.stdout.split()[-1])
+        _wait(lambda: _gone(pid), 30, f"server process {pid} to end")
+
+    _within(90, run)
+
+
+def test_server_process_stops_at_its_time_limit(drv_env):
+    import numpy as np
+
+    from brpc_tpu_torch.parallel.ps_process import ServerProcess
+
+    def run():
+        srv = ServerProcess({"w": np.ones((4, 4), np.float32)},
+                            device="cpu", timeout_s=3)
+        proc = srv.proc
+        try:
+            _wait(lambda: proc.poll() is not None, 30,
+                  "the server process to reach its time limit")
+            assert proc.returncode == 124
+        finally:
+            srv.close()
+
+    _within(60, run)
 
 
 # ---------------------------------------------------------------------------
