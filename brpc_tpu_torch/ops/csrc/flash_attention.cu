@@ -16,12 +16,16 @@
 // b=1 h=32 hkv=8 s=8192 d=128 causal; bench.py's b=8 h=8 s=4096 d=128
 // non-causal) the work is 5.50e11 FLOP either way, 0.556 ms at the card's
 // 989 TFLOP/s dense bf16, against 0.11-0.14 ms for the bytes: arithmetic
-// bounds it, so the products belong on the tensor cores.
+// bounds it, so the products belong on the tensor cores. In fp32 the same
+// layer is 8.21 ms at 67 TFLOP/s on the CUDA cores, and 3.33 ms as 3xTF32
+// (three TF32 products for each fp32 one) at 495 TFLOP/s dense TF32: fp32
+// belongs on the tensor cores too, split so it keeps fp32's accuracy
+// (plain TF32, 10 mantissa bits, puts ~4e-4 into m at d = 128).
 //
 // Design. The TPU kernel walks k blocks as a sequential grid dimension and
 // revisits its output block; here one thread block owns one (q tile, b*h)
 // pair and loops over the k tiles itself, reading the carries once and
-// writing them once. Two kernels:
+// writing them once. Three kernels:
 //
 // - flash_ws_kernel<D> (bf16, d = 64 or 128, 16-byte aligned operands):
 //   warp-specialised for Hopper. 384 threads in 3 warpgroups own a 128-row
@@ -45,9 +49,35 @@
 //   FFMA and ex2; m stays max(s*scale), the same bits as scaling first.
 //   Both warpgroups walk the block's live tiles (a tile wholly masked for
 //   one of them changes nothing: p = 0, the correction is exactly 1).
+// - flash_tf32x3_kernel<D> (fp32, d % 4 == 0, 16-byte aligned operands;
+//   D the width class 8..256 that holds d): replaces flash_simt_kernel on
+//   the fp32 path, which ran every product on the CUDA cores with one
+//   output element a thread and both FMA operands read from shared memory
+//   (8% of the FMA bound at the Llama layer). Here the products are
+//   mma.sync m16n8k8 on the tensor cores in 3xTF32: each operand x is
+//   split in registers into big = x rounded to TF32 and small = x - big,
+//   and a product is small.big + big.small + big.big into an fp32
+//   accumulator (CUTLASS's fast-fp32 scheme), ~2^-21 relative error. Each
+//   warp owns 16 q rows and holds its scores and acc carry in registers;
+//   a block of 8 warps (4 at D = 256) owns 128 rows (64), so each K/V
+//   element is fetched once for 128 queries, and walks 64-key tiles (32 at
+//   D = 256) that cp.async streams through two shared-memory stages under
+//   the products. p stays in fp32 (p.astype(v.dtype) is the identity) and
+//   enters p.v split like the other operands; the scores' accumulator
+//   layout serves as p.v's A fragment with the keys of each 8 permuted,
+//   V's fragment read in the same order. Softmax and masking as in
+//   flash_ws_kernel (a tile wholly masked for a warp changes nothing).
+//   What bounds it: mma.sync's own TF32 rate, which on an H100 SXM is
+//   ~64% of the dense peak (tools/mma_tf32_rate.py), and the splits and
+//   fragment loads issued beside the products. wgmma is not used: for tf32
+//   it takes only K-major operands from shared memory, so V (keys x d, d
+//   contiguous, MN-major for p.v) would need a transposing pass over
+//   every tile, and every small part would be staged in shared memory
+//   beside its big part, which doubles what each product reads there.
 // - flash_simt_kernel<T> (fp32 or bf16, any d <= 256): the same algorithm
 //   on plain fp32 arithmetic, 16 q rows by 32-key tiles in shared memory,
-//   for the shapes the tensor-core kernel does not take.
+//   for the shapes the tensor-core kernels do not take (fp32 with d % 4
+//   != 0 or a misaligned view; bf16 at other widths).
 //
 // q tiles are issued heaviest first, and the q heads of one GQA group go
 // to neighbouring blocks so their K/V tiles are read from L2. Global
@@ -279,18 +309,19 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// The online softmax of one 64x128 score tile in the accumulator layout
-// (element i of a thread: row r_lo + 8*((i>>1)&1), column k0 + 8*(i>>2) +
-// 2t + (i&1)). s holds q.k^T unscaled on entry and p (fp32) on exit; the
-// carries m, l step, and corr is the factor acc must take. MASK tests
-// every element (a causal diagonal or the ragged last tile of sk).
-template <bool MASK>
+// The online softmax of a warp's 16 rows of one score tile in the mma
+// accumulator layout, N/4 blocks of 8 keys (element i of a thread: row
+// r_lo + 8*((i>>1)&1), column k0 + 8*(i>>2) + 2t + (i&1)). s holds q.k^T
+// unscaled on entry and p (fp32) on exit; the carries m, l step, and corr
+// is the factor acc must take. MASK tests every element (a causal
+// diagonal or the ragged last tile of sk).
+template <bool MASK, int N>
 __device__ __forceinline__ void online_softmax(
-    float (&s)[64], float (&m_row)[2], float (&l_row)[2], float (&corr)[2],
+    float (&s)[N], float (&m_row)[2], float (&l_row)[2], float (&corr)[2],
     const Params& p, int q_off, int kv_off, int r_lo, int k0, int t) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N; ++i) {
     if (MASK) {
       const int col = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
       const int row = r_lo + ((i >> 1) & 1) * 8;
@@ -312,7 +343,7 @@ __device__ __forceinline__ void online_softmax(
   }
   const float c = p.scale * kLog2e;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N; ++i) {
     // exp(s*scale - m) as one FFMA and ex2; a masked lane (-inf) gives 0.
     s[i] = ex2(fmaf(s[i], c, -mc[(i >> 1) & 1]));
     rsum[(i >> 1) & 1] += s[i];
@@ -550,6 +581,278 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
+// ------------------------------------------------------------ fp32, 3xTF32
+
+// Tiles of flash_tf32x3_kernel<D> (D: the width class, 8 to 256, that
+// holds d; columns past d are zero-filled and never stored).
+template <int D>
+struct Tf32Shape {
+  static constexpr int kWarps = D == 256 ? 4 : 8;  // 16 q rows a warp
+  static constexpr int kBM = 16 * kWarps;
+  static constexpr int kBN = D == 256 ? 32 : 64;   // keys per tile
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kStages = 2;                // K/V tiles in flight
+  // Row strides in floats. Q and K are read as float2 at (row g, column
+  // 2t): a stride of 8 or 24 mod 32 puts each half-warp's reads on 32
+  // distinct banks. V is read as scalars at (key 2t or 2t+1, column g):
+  // a stride of 4 mod 8 does the same for each warp.
+  static constexpr int kLdQK = D == 8 ? 8 : D + 8;
+  static constexpr int kLdV = D + 4;
+  static constexpr int kQFloats = kBM * kLdQK;
+  static constexpr int kKFloats = kBN * kLdQK;
+  static constexpr int kVFloats = kBN * kLdV;
+  static constexpr int kSmem =
+      4 * (kQFloats + kStages * (kKFloats + kVFloats));
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  // bytes 0: the 16 bytes at dst are zero-filled and nothing is read.
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + ROWS) of a [n_rows, d] fp32 matrix into shared memory
+// (row stride LD floats) in 16-byte copies; rows past n_rows and columns
+// past d (d % 4 == 0) read as zeros.
+template <int D, int ROWS, int LD, int THREADS>
+__device__ __forceinline__ void load_rows(uint32_t dst, const float* src,
+                                          int r0, int n_rows, int d) {
+  constexpr int kChunks = D / 4;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ROWS * kChunks; e += THREADS) {
+    const int r = e / kChunks, c = e % kChunks;
+    const bool ok = r0 + r < n_rows && 4 * c < d;
+    cp_async16(dst + 4 * (r * LD + 4 * c),
+               ok ? src + static_cast<size_t>(r0 + r) * d + 4 * c : src,
+               ok ? 16 : 0);
+  }
+}
+
+// x = big + small for 3xTF32. big is x rounded to TF32 (10 mantissa
+// bits), to nearest with ties away from zero: cvt.rna.tf32.f32's rule,
+// done on the bits (add half an ulp to the magnitude, drop 13 bits),
+// which keeps it on the integer pipe. small = x - big is exact in fp32;
+// the tensor core reads its top 19 bits (truncation).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// c += a . b, a 16x8 (row), b 8x8 (col), tf32 in, fp32 accumulate.
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a . b in 3xTF32: the two cross terms, then big . big, into the
+// same fp32 accumulator (small . small, ~2^-22 relative, is dropped). For
+// p.v; q.k^T keeps the cross terms in an accumulator of their own.
+__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* a_big,
+                                           const uint32_t* a_small,
+                                           const uint32_t* b_big,
+                                           const uint32_t* b_small) {
+  mma_tf32(c, a_small, b_big);
+  mma_tf32(c, a_big, b_small);
+  mma_tf32(c, a_big, b_big);
+}
+
+// The fp32 carry on the tensor cores. One block owns kBM q rows of one
+// (b, h), 16 a warp, and walks the live k tiles of kBN keys: K and V tiles
+// stream through two shared-memory stages by cp.async (the next tile's
+// copy runs under this tile's products), Q is copied once. A warp keeps
+// its scores and its acc carry in registers in the m16n8 accumulator
+// layout: s = q.k^T and acc += p.v are m16n8k8 mma.sync in 3xTF32, each
+// operand split in registers as it is read from shared memory. q.k^T
+// keeps its cross terms apart from big.big; acc has no room for that (64
+// registers more at d = 128). Q and K
+// fragments take columns 2t and 2t+1 of each 8 of d as the mma's k
+// indices t and t+4 (one float2 read); p leaves the scores' layout with
+// keys 2t and 2t+1 of each 8 in those places, so V's fragment reads keys
+// 2t and 2t+1 too (a sum over k does not depend on its order).
+template <int D>
+__global__ void __launch_bounds__(Tf32Shape<D>::kThreads, 1)
+    flash_tf32x3_kernel(Params p) {
+  using S = Tf32Shape<D>;
+  constexpr int kBM = S::kBM, kBN = S::kBN, kThreads = S::kThreads;
+  constexpr int kLdQK = S::kLdQK, kLdV = S::kLdV;
+  extern __shared__ float4 smem_f4[];
+  float* const sQ = reinterpret_cast<float*>(smem_f4);
+  float* const sK = sQ + S::kQFloats;                // stage st: + st*kKFloats
+  float* const sV = sK + S::kStages * S::kKFloats;   // stage st: + st*kVFloats
+
+  // Block order as flash_ws_kernel's: causal, heaviest q tiles first and
+  // the heads of a GQA group side by side; else one head's tiles together.
+  const int n_qt = (p.sq + kBM - 1) / kBM;
+  const int n_bh = gridDim.x / n_qt;
+  const int idx = blockIdx.x;
+  const int rank = p.causal ? idx / n_bh : idx % n_qt;
+  const int bh = p.causal ? idx % n_bh : idx / n_qt;
+  const int m0 = (n_qt - 1 - rank) * kBM;
+  const int b = bh / p.h, hh = bh % p.h;
+  const int kv_bh = b * p.hkv + hh / (p.h / p.hkv);
+  int q_off, kv_off;
+  read_offsets(p, &q_off, &kv_off);
+  const int n_tiles = live_tiles(p, q_off, kv_off, m0, kBM, kBN);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r_w = m0 + 16 * warp;  // the warp's first row
+  const int r_lo = r_w + g;        // this thread's rows: +0, +8
+  const int d = p.d;
+  const size_t row_base = static_cast<size_t>(bh) * p.sq;
+  const float* const Q =
+      static_cast<const float*>(p.q) + row_base * d;
+  const size_t kv_base = static_cast<size_t>(kv_bh) * p.sk * d;
+  const float* const K = static_cast<const float*>(p.k) + kv_base;
+  const float* const V = static_cast<const float*>(p.v) + kv_base;
+
+  constexpr int kNO = D / 2;  // acc floats a thread: D/8 blocks of 4
+  float m_row[2], l_row[2], o[kNO];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_lo + 8 * i;
+    const bool ok = r < p.sq;
+    m_row[i] = ok ? p.m_in[row_base + r] : kNeg;
+    l_row[i] = ok ? p.l_in[row_base + r] : 0.f;
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb) {
+      const int col = 8 * nb + 2 * t;
+      float2 a = make_float2(0.f, 0.f);
+      if (ok && col < d) {
+        a = *reinterpret_cast<const float2*>(p.acc_in + (row_base + r) * d +
+                                             col);
+      }
+      o[4 * nb + 2 * i] = a.x;
+      o[4 * nb + 2 * i + 1] = a.y;
+    }
+  }
+
+  if (n_tiles > 0) {
+    const uint32_t q_s = smem_u32(sQ), k_s = smem_u32(sK), v_s = smem_u32(sV);
+    load_rows<D, kBM, kLdQK, kThreads>(q_s, Q, m0, p.sq, d);
+    load_rows<D, kBN, kLdQK, kThreads>(k_s, K, 0, p.sk, d);
+    load_rows<D, kBN, kLdV, kThreads>(v_s, V, 0, p.sk, d);
+    cp_async_commit();
+    const float* const q_lo = sQ + (16 * warp + g) * kLdQK + 2 * t;
+    const float* const q_hi = q_lo + 8 * kLdQK;
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j & 1;
+      if (j + 1 < n_tiles) {  // tile j+1 into the other stage
+        const int nx = (j + 1) * kBN;
+        load_rows<D, kBN, kLdQK, kThreads>(
+            k_s + 4 * (st ^ 1) * S::kKFloats, K, nx, p.sk, d);
+        load_rows<D, kBN, kLdV, kThreads>(
+            v_s + 4 * (st ^ 1) * S::kVFloats, V, nx, p.sk, d);
+      }
+      cp_async_commit();  // possibly empty: the count stays uniform
+      cp_async_wait<1>();  // tile j (and Q) landed, for this thread ...
+      __syncthreads();     // ... and for every thread
+
+      const long long k0 = static_cast<long long>(j) * kBN;
+      const float* const k_t = sK + st * S::kKFloats + g * kLdQK + 2 * t;
+      const float* const v_t = sV + st * S::kVFloats + 2 * t * kLdV + g;
+      // s = q . k^T, 8 of d at a time: big.big into s and the two cross
+      // terms into s2, added once at the end. The tensor core truncates
+      // the fp32 sum it accumulates into at every step; kept apart, the
+      // cross terms' steps truncate a sum ~2^-11 the size of s's, which
+      // cuts the error in m at d = 128 by ~40% against one accumulator.
+      float s[kBN / 2], s2[kBN / 2];
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) s[i] = s2[i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const float2 lo = *reinterpret_cast<const float2*>(q_lo + 8 * kk);
+        const float2 hi = *reinterpret_cast<const float2*>(q_hi + 8 * kk);
+        uint32_t ab[4], as[4];
+        split_tf32(lo.x, ab[0], as[0]);
+        split_tf32(hi.x, ab[1], as[1]);
+        split_tf32(lo.y, ab[2], as[2]);
+        split_tf32(hi.y, ab[3], as[3]);
+#pragma unroll
+        for (int nb = 0; nb < kBN / 8; ++nb) {
+          const float2 kv = *reinterpret_cast<const float2*>(
+              k_t + nb * 8 * kLdQK + 8 * kk);
+          uint32_t bb[2], bs[2];
+          split_tf32(kv.x, bb[0], bs[0]);
+          split_tf32(kv.y, bb[1], bs[1]);
+          mma_tf32(s2 + 4 * nb, as, bb);
+          mma_tf32(s2 + 4 * nb, ab, bs);
+          mma_tf32(s + 4 * nb, ab, bb);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) s[i] += s2[i];
+      float corr[2];
+      const bool need =
+          k0 + kBN > p.sk ||
+          (p.causal && static_cast<long long>(q_off) + r_w <
+                           kv_off + k0 + kBN - 1);
+      if (need) {
+        online_softmax<true>(s, m_row, l_row, corr, p, q_off, kv_off,
+                             r_lo, static_cast<int>(k0), t);
+      } else {
+        online_softmax<false>(s, m_row, l_row, corr, p, q_off, kv_off,
+                              r_lo, static_cast<int>(k0), t);
+      }
+#pragma unroll
+      for (int i = 0; i < kNO; ++i) o[i] *= corr[(i >> 1) & 1];
+      // acc += p . v, 8 keys at a time: p's A fragment is its own
+      // accumulator fragment with keys 2t, 2t+1 as k indices t, t+4.
+#pragma unroll
+      for (int kb = 0; kb < kBN / 8; ++kb) {
+        uint32_t ab[4], as[4];
+        split_tf32(s[4 * kb + 0], ab[0], as[0]);
+        split_tf32(s[4 * kb + 2], ab[1], as[1]);
+        split_tf32(s[4 * kb + 1], ab[2], as[2]);
+        split_tf32(s[4 * kb + 3], ab[3], as[3]);
+        const float* const v_k = v_t + kb * 8 * kLdV;
+#pragma unroll
+        for (int nd = 0; nd < D / 8; ++nd) {
+          uint32_t bb[2], bs[2];
+          split_tf32(v_k[8 * nd], bb[0], bs[0]);
+          split_tf32(v_k[kLdV + 8 * nd], bb[1], bs[1]);
+          mma_3xtf32(o + 4 * nd, ab, as, bb, bs);
+        }
+      }
+      __syncthreads();  // stage st is free for tile j+2
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_lo + 8 * i;
+    if (r >= p.sq) continue;
+    if (t == 0) {
+      p.m_out[row_base + r] = m_row[i];
+      p.l_out[row_base + r] = l_row[i];
+    }
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb) {
+      const int col = 8 * nb + 2 * t;
+      if (col < d) {
+        *reinterpret_cast<float2*>(p.acc_out + (row_base + r) * d + col) =
+            make_float2(o[4 * nb + 2 * i], o[4 * nb + 2 * i + 1]);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------ plain fp32
 
 constexpr int kSimtBM = 16;
@@ -756,15 +1059,39 @@ cudaError_t launch_simt(const Params& p, int bh, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The warp-specialised kernel takes bf16 at d 64 or 128 with 16-byte aligned
-// q, k, v and 8-byte aligned accumulators; everything else goes to the
-// SIMT kernel. The one place that rule lives (brpc_flash_tile_k reads it).
-bool takes_tc(const void* q, const void* k, const void* v,
-              const float* acc_in, const float* acc_out, int d,
-              int is_bf16) {
-  return is_bf16 && (d == 64 || d == 128) && aligned(q, 16) &&
-         aligned(k, 16) && aligned(v, 16) && aligned(acc_in, 8) &&
-         aligned(acc_out, 8);
+template <int D>
+cudaError_t launch_tf32x3(const Params& p, int b, cudaStream_t stream) {
+  using S = Tf32Shape<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_tf32x3_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      S::kSmem);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (p.sq + S::kBM - 1) / S::kBM;
+  flash_tf32x3_kernel<D><<<n_qt * b * p.h, S::kThreads, S::kSmem, stream>>>(
+      p);
+  return cudaGetLastError();
+}
+
+// The width class of flash_tf32x3_kernel that holds d (<= 256).
+int tf32_width(int d) {
+  return d <= 8 ? 8 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64
+         : d <= 128 ? 128 : 256;
+}
+
+enum Route { kRouteSimt = 0, kRouteWs = 1, kRouteTf32x3 = 2 };
+
+// Which kernel takes these operands; the one place that rule lives
+// (brpc_flash_tile_k and brpc_flash_route read it). bf16 at d 64 or 128
+// with 16-byte aligned q, k, v and 8-byte aligned accumulators: the
+// warp-specialised kernel. fp32 with d % 4 == 0 (16-byte rows for
+// cp.async) and the same alignment: the 3xTF32 kernel. Everything else:
+// the SIMT kernel.
+Route route(const void* q, const void* k, const void* v, const float* acc_in,
+            const float* acc_out, int d, int is_bf16) {
+  const bool fits = aligned(q, 16) && aligned(k, 16) && aligned(v, 16) &&
+                    aligned(acc_in, 8) && aligned(acc_out, 8);
+  if (is_bf16) return fits && (d == 64 || d == 128) ? kRouteWs : kRouteSimt;
+  return fits && d % 4 == 0 ? kRouteTf32x3 : kRouteSimt;
 }
 
 }  // namespace
@@ -774,14 +1101,41 @@ bool takes_tc(const void* q, const void* k, const void* v,
 extern "C" int brpc_flash_tile_k(const void* q, const void* k, const void* v,
                                  const float* acc_in, const float* acc_out,
                                  int d, int is_bf16) {
-  if (!takes_tc(q, k, v, acc_in, acc_out, d, is_bf16)) return kSimtBN;
-  return d == 128 ? WsShape<128>::kBN : WsShape<64>::kBN;
+  switch (route(q, k, v, acc_in, acc_out, d, is_bf16)) {
+    case kRouteWs:
+      return d == 128 ? WsShape<128>::kBN : WsShape<64>::kBN;
+    case kRouteTf32x3:
+      return tf32_width(d) == 256 ? Tf32Shape<256>::kBN : Tf32Shape<8>::kBN;
+    default:
+      return kSimtBN;
+  }
+}
+
+// The kernel brpc_flash_carry launches for these operands: 0
+// flash_simt_kernel, 1 flash_ws_kernel, 2 flash_tf32x3_kernel.
+extern "C" int brpc_flash_route(const void* q, const void* k, const void* v,
+                                const float* acc_in, const float* acc_out,
+                                int d, int is_bf16) {
+  return route(q, k, v, acc_in, acc_out, d, is_bf16);
 }
 
 // Dynamic shared memory a block of the warp-specialised kernel asks for at
 // width d (64 or 128; else 0).
 extern "C" int brpc_flash_ws_smem(int d) {
   return d == 128 ? WsShape<128>::kSmem : d == 64 ? WsShape<64>::kSmem : 0;
+}
+
+// Dynamic shared memory a block of the 3xTF32 kernel asks for at width d
+// (<= 256).
+extern "C" int brpc_flash_tf32x3_smem(int d) {
+  switch (tf32_width(d)) {
+    case 8: return Tf32Shape<8>::kSmem;
+    case 16: return Tf32Shape<16>::kSmem;
+    case 32: return Tf32Shape<32>::kSmem;
+    case 64: return Tf32Shape<64>::kSmem;
+    case 128: return Tf32Shape<128>::kSmem;
+    default: return Tf32Shape<256>::kSmem;
+  }
 }
 
 // q [b,h,sq,d], k and v [b,hkv,sk,d] (bf16 when is_bf16, else fp32), the
@@ -803,13 +1157,24 @@ extern "C" int brpc_flash_carry(const void* q, const void* k, const void* v,
            acc_out, offsets, q_off, kv_off, h,    hkv,    sq,     sk,
            d,     causal, scale};
   cudaError_t err;
-  if (takes_tc(q, k, v, acc_in, acc_out, d, is_bf16)) {
-    err = d == 128 ? launch_ws<128>(p, b, stream)
-                   : launch_ws<64>(p, b, stream);
-  } else if (is_bf16) {
-    err = launch_simt<__nv_bfloat16>(p, b * h, stream);
-  } else {
-    err = launch_simt<float>(p, b * h, stream);
+  switch (route(q, k, v, acc_in, acc_out, d, is_bf16)) {
+    case kRouteWs:
+      err = d == 128 ? launch_ws<128>(p, b, stream)
+                     : launch_ws<64>(p, b, stream);
+      break;
+    case kRouteTf32x3:
+      switch (tf32_width(d)) {
+        case 8: err = launch_tf32x3<8>(p, b, stream); break;
+        case 16: err = launch_tf32x3<16>(p, b, stream); break;
+        case 32: err = launch_tf32x3<32>(p, b, stream); break;
+        case 64: err = launch_tf32x3<64>(p, b, stream); break;
+        case 128: err = launch_tf32x3<128>(p, b, stream); break;
+        default: err = launch_tf32x3<256>(p, b, stream); break;
+      }
+      break;
+    default:
+      err = is_bf16 ? launch_simt<__nv_bfloat16>(p, b * h, stream)
+                    : launch_simt<float>(p, b * h, stream);
   }
   return static_cast<int>(err);
 }

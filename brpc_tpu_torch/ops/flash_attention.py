@@ -29,29 +29,46 @@ from brpc_tpu_torch.utils.device import resolve_device
 _NEG = -1e30  # "never attended" sentinel: finite so corrections stay 0, not NaN
 
 LAUNCHES = _build.LaunchCounter("brpc_flash_carry")
+# The launches of brpc_flash_carry that went to its fp32 tensor-core kernel
+# (each also counts in LAUNCHES).
+LAUNCHES_TF32X3 = _build.LaunchCounter("brpc_flash_carry:flash_tf32x3_kernel")
 
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 _DTYPES = (torch.float32, torch.bfloat16)
+# brpc_flash_route's answers, in its order.
+KERNELS = ("flash_simt_kernel", "flash_ws_kernel", "flash_tf32x3_kernel")
+_TF32X3 = KERNELS.index("flash_tf32x3_kernel")
+
+
+def _ask(name: str, q, k, v, acc, acc_out=None) -> int:
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: q is on {q.device}; the kernel's choice "
+                         "exists for CUDA tensors only")
+    fn = _build.kernel(name, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2)
+    # acc stands in for acc_out unless given, which the wrapper allocates
+    # fresh (the caching allocator aligns it to 512 bytes).
+    out = acc if acc_out is None else acc_out
+    return int(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+                  out.data_ptr(), q.shape[-1],
+                  int(q.dtype == torch.bfloat16)))
 
 
 def kernel_tile_k(q, k, v, acc) -> int:
     """Keys per tile that the CUDA kernel walks for these operands, as the
-    kernel's own dispatch (``brpc_flash_tile_k``) picks it: 128 on its
-    warp-specialised tensor-core path, 32 on its fp32 path. The plain
-    version run with ``block_k`` equal to it and ``ragged_tail=True`` steps
-    the running max and rounds p where the kernel does. CUDA tensors only:
-    CPU tensors have no kernel."""
-    if q.device.type != "cuda":
-        raise ValueError(f"kernel_tile_k: q is on {q.device}; the kernel's "
-                         "tile exists for CUDA tensors only")
-    fn = _build.kernel("brpc_flash_tile_k",
-                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2)
-    # acc stands in for acc_out, which the wrapper allocates fresh (the
-    # caching allocator aligns it to 512 bytes).
-    return int(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
-                  acc.data_ptr(), q.shape[-1],
-                  int(q.dtype == torch.bfloat16)))
+    kernel's own dispatch (``brpc_flash_tile_k``) picks it: 128 on its bf16
+    tensor-core path, 64 on its fp32 tensor-core path (32 at d > 128), 32
+    on its SIMT path. The plain version run with ``block_k`` equal to it
+    and ``ragged_tail=True`` steps the running max and rounds p where the
+    kernel does. CUDA tensors only: CPU tensors have no kernel."""
+    return _ask("brpc_flash_tile_k", q, k, v, acc)
+
+
+def kernel_name(q, k, v, acc) -> str:
+    """The kernel of ``brpc_flash_carry`` that takes these operands, by the
+    kernel's own dispatch (``brpc_flash_route``): one of ``KERNELS``. CUDA
+    tensors only."""
+    return KERNELS[_ask("brpc_flash_route", q, k, v, acc)]
 
 
 def _pick_block(seq: int, want: int) -> int:
@@ -159,10 +176,12 @@ def flash_attention_carry(q, k, v, m, l, acc, offsets, *,
     (m, l, acc); finalize with ``flash_finalize``.
 
     CPU tensors take ``flash_carry_reference`` with ``block_q``/``block_k``
-    as in the JAX package. On CUDA the kernel picks its own tiles (128 keys
-    on the tensor-core path; 32 on the fp32 path, which also takes any
-    d <= 256 and bf16 at other widths) and takes bf16 or fp32, contiguous,
-    d <= 256; it raises TypeError or ValueError on anything else.
+    as in the JAX package. On CUDA the kernel picks its own tiles
+    (``kernel_tile_k``: 128 keys on the bf16 tensor-core path, 64 on the
+    fp32 one, which runs 3xTF32 and takes d % 4 == 0 (32 keys at d > 128),
+    32 on the SIMT path, which takes the rest) and takes bf16 or fp32,
+    contiguous, d <= 256; it raises TypeError or ValueError on anything
+    else.
     """
     _check(q, k, v, m, l, acc, offsets)
     tensors = (q, k, v, m, l, acc)
@@ -217,6 +236,9 @@ def flash_attention_carry(q, k, v, m, l, acc, offsets, *,
                 int(causal), 1.0 / (d ** 0.5), stream)
     _build.check(rc, "brpc_flash_carry")
     LAUNCHES.add()
+    if (q.dtype == torch.float32 and _ask("brpc_flash_route", q, k, v, acc,
+                                          acc_out) == _TF32X3):
+        LAUNCHES_TF32X3.add()
     return m_out, l_out, acc_out
 
 

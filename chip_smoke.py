@@ -126,9 +126,13 @@ PUSHES = 3
 _HBM_RATE = (("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 # Dense bf16 tensor-core peaks, FLOP/s (the same data sheets).
 _BF16_RATE = (("H100 PCIe", 756e12), ("H100", 989e12))
-# fp32 peaks outside the tensor cores, FLOP/s (the same data sheets): K3's
-# fp32 path (flash_simt_kernel) runs on the CUDA cores.
+# fp32 peaks outside the tensor cores, FLOP/s (the same data sheets): the
+# rate K3's fp32 path had on the CUDA cores (flash_simt_kernel), logged as
+# a second bound beside the first.
 _F32_RATE = (("H100 PCIe", 51e12), ("H100", 67e12))
+# Dense TF32 tensor-core peaks, FLOP/s (the same data sheets): K3's fp32
+# path (flash_tf32x3_kernel) takes three TF32 products for each fp32 one.
+_TF32_RATE = (("H100 PCIe", 378e12), ("H100", 495e12))
 # Meta's Llama 3 8B (meta-llama/Meta-Llama-3-8B config.json): 32 attention
 # heads, 8 kv heads, hidden 4096 (head dim 128), 8192 positions; one
 # attention layer at full context, causal.
@@ -531,13 +535,18 @@ def _qkv(b, h, hkv, sq, d, dtype, seed, sk=None):
     return mk(b, h, sq, d), mk(b, hkv, sk, d), mk(b, hkv, sk, d)
 
 
-def _flash_case(label, q, k, v, carry, offsets, causal) -> float:
-    """Kernel vs plain on one input; returns max |acc/l| error."""
+def _flash_case(label, q, k, v, carry, offsets, causal,
+                kernel=None) -> float:
+    """Kernel vs plain on one input; returns max |acc/l| error. ``kernel``:
+    the kernel the dispatch must pick for these operands (else any)."""
     import torch
 
     from brpc_tpu_torch.ops import flash_attention as fa
 
     m, l, acc = carry
+    name = fa.kernel_name(q, k, v, acc)
+    if kernel is not None and name != kernel:
+        fail(f"K3 {label}: dispatched to {name}, not {kernel}")
     off = torch.tensor(offsets, dtype=torch.int32, device=q.device)
     km, kl, ka = fa.flash_attention_carry(q, k, v, m, l, acc, off,
                                           causal=causal)
@@ -558,8 +567,8 @@ def _flash_case(label, q, k, v, carry, offsets, causal) -> float:
     out_k = fa.flash_finalize(kl, ka, q.dtype).float()
     out_r = fa.flash_finalize(rl, ra, q.dtype).float()
     err_out = ((out_k - out_r).abs() - step * out_r.abs()).max().item()
-    log(f"K3 {label}: q {tuple(q.shape)} kv {tuple(k.shape)} {q.dtype} "
-        f"offsets {offsets} causal={causal}: max err m {err_m:.3g} "
+    log(f"K3 {label} ({name}): q {tuple(q.shape)} kv {tuple(k.shape)} "
+        f"{q.dtype} offsets {offsets} causal={causal}: max err m {err_m:.3g} "
         f"l(rel) {err_l:.3g} acc/l {err_o:.3g} out {err_out:.3g}")
     if (err_m > FLASH_TOL["m"] or err_l > FLASH_TOL["l"] or err_o > tol_o
             or err_out > tol_o):
@@ -572,8 +581,8 @@ def _flash_timing(q, k, v, causal, rate, flops_rate, reps=10,
                   inner=3) -> dict:
     """kernel / plain / SDPA ms at a fresh-carry full pass, and the bound:
     4*d FLOP per (query, legal key) pair (q.k and p.v) at ``flops_rate``
-    (the card's peak for the input type), or the bytes (q, k, v and the
-    carries in; carries out)."""
+    (the card's peak for the input type, per FLOP of the function), or the
+    bytes (q, k, v and the carries in; carries out)."""
     import torch
     import torch.nn.functional as F
 
@@ -604,7 +613,7 @@ def _flash_timing(q, k, v, causal, rate, flops_rate, reps=10,
 
 
 def flash_vs_plain(seed: int, rate: float, flops_rate: float,
-                   f32_rate: float) -> dict:
+                   f32_rate: float, tf32_rate: float) -> dict:
     import torch
 
     from brpc_tpu_torch.ops import flash_attention as fa
@@ -621,51 +630,83 @@ def flash_vs_plain(seed: int, rate: float, flops_rate: float,
         timing[label] = _flash_timing(q, k, v, cfg["causal"], rate,
                                       flops_rate)
         del q, k, v
-    # fp32 (flash_simt_kernel) at the Llama layer: held against its plain
-    # version there, timed beside SDPA in fp32; bound by the fp32 peak
-    # outside the tensor cores.
+    # fp32 (flash_tf32x3_kernel, 3xTF32 on the tensor cores) at the Llama
+    # layer: held against its plain version there, timed beside SDPA in
+    # fp32; bound by three TF32 products for each fp32 one at the dense
+    # TF32 peak, and, for comparison with the CUDA-core kernel it
+    # replaced, by the fp32 FMA peak.
     c = LLAMA3_8B_ATTN
+    tc = "flash_tf32x3_kernel"
     q, k, v = _qkv(c["b"], c["h"], c["hkv"], c["s"], c["d"], f32, seed)
     f32_err = _flash_case("Llama 3 8B layer, fp32", q, k, v,
                           fa.flash_init(c["b"], c["h"], c["s"], c["d"],
-                                        device="cuda"), (0, 0), c["causal"])
+                                        device="cuda"), (0, 0), c["causal"],
+                          kernel=tc)
     errs.append(f32_err)
-    timing["Llama 3 8B layer, fp32"] = _flash_timing(
-        q, k, v, c["causal"], rate, f32_rate, reps=3, inner=1)
+    f32_t = _flash_timing(q, k, v, c["causal"], rate, tf32_rate / 3,
+                          reps=5, inner=2)
+    f32_t["fma_bound_ms"] = f32_t["flop"] / f32_rate * 1e3
+    timing["Llama 3 8B layer, fp32"] = f32_t
     del q, k, v
-    # fp32 on the SIMT path: first exactly the two calls dryrun_multichip(1)
-    # makes (the single-head ring, non-causal, and the GQA causal ring; sq
-    # and sk both under one tile, so keys past sk are masked with causal
-    # off), then wider ones.
-    for label, shape, causal in (
-            ("dryrun single-head ring", (2, 1, 1, 4, 8), False),
-            ("dryrun GQA causal ring", (2, 4, 2, 8, 8), True),
-            ("f32 d=8 s=64", (2, 4, 2, 64, 8), True),
-            ("f32 d=64 s=256", (2, 4, 4, 256, 64), False)):
+    # fp32 on the tensor cores: first exactly the two calls
+    # dryrun_multichip(1) makes (the single-head ring, non-causal, and the
+    # GQA causal ring; sq and sk both under one tile, so keys past sk are
+    # masked with causal off), then wider ones: d = 256 (32-key tiles, 64
+    # rows a block), a ragged last tile of 40 keys under a diagonal that
+    # crosses tiles mid-way.
+    for label, shape, causal, offsets, sk in (
+            ("dryrun single-head ring", (2, 1, 1, 4, 8), False, (0, 0),
+             None),
+            ("dryrun GQA causal ring", (2, 4, 2, 8, 8), True, (0, 0), None),
+            ("f32 d=8 s=64", (2, 4, 2, 64, 8), True, (0, 0), None),
+            ("f32 d=64 s=256", (2, 4, 4, 256, 64), False, (0, 0), None),
+            ("f32 d=256", (1, 4, 2, 300, 256), True, (36, 0), 333),
+            ("f32 ragged sk, diagonal mid-tile", (1, 8, 2, 1000, 128), True,
+             (24, 0), 1000)):
         b, h, hkv, s, d = shape
-        q, k, v = _qkv(b, h, hkv, s, d, f32, seed + 1)
+        q, k, v = _qkv(b, h, hkv, s, d, f32, seed + 1, sk=sk)
         errs.append(_flash_case(label, q, k, v,
                                 fa.flash_init(b, h, s, d, device="cuda"),
-                                (0, 0), causal))
-    # One ring hop of the Llama layer over 4 shards: rank 1 folds its own
-    # (diagonal) block into a carry that already holds rank 0's block —
-    # every q tile meets fully masked k tiles past the diagonal.
+                                offsets, causal, kernel=tc))
+    # Views the dispatch leaves on flash_simt_kernel<float>: d % 4 != 0
+    # (rows that are not 16-byte multiples), and a view 4 bytes off.
+    simt = "flash_simt_kernel"
+    q, k, v = _qkv(1, 4, 2, 200, 6, f32, seed + 5, sk=300)
+    errs.append(_flash_case("f32 d=6", q, k, v,
+                            fa.flash_init(1, 4, 200, 6, device="cuda"),
+                            (100, 0), True, kernel=simt))
+    q, k, v = (_qkv(1, 4, 2, 200, 64, f32, seed + 6, sk=300)[i]
+               for i in range(3))
+    q, k, v = (torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
+               for t in (q, k, v))
+    errs.append(_flash_case("f32 misaligned view", q, k, v,
+                            fa.flash_init(1, 4, 200, 64, device="cuda"),
+                            (100, 0), True, kernel=simt))
+    del q, k, v
+    # One ring hop of the Llama layer over 4 shards, in bf16 and in fp32:
+    # rank 1 folds its own (diagonal) block into a carry that already holds
+    # rank 0's block — every q tile meets fully masked k tiles past the
+    # diagonal; the offsets are read from the device.
     c = LLAMA3_8B_ATTN
     sq = c["s"] // RING_SHARDS
-    q, k, v = _qkv(c["b"], c["h"], c["hkv"], sq, c["d"], bf16, seed + 2)
-    k0, v0 = _qkv(c["b"], c["hkv"], c["hkv"], sq, c["d"], bf16, seed + 3)[1:]
-    carry = fa.flash_carry_reference(
-        q, k0, v0, *fa.flash_init(c["b"], c["h"], sq, c["d"], device="cuda"),
-        (sq, 0), causal=True, block_k=64)
-    errs.append(_flash_case("ring hop, diagonal", q, k, v, carry, (sq, sq),
-                            True))
-    # A hop wholly after the queries: nothing folds, the carry comes back.
-    got = fa.flash_attention_carry(q, k, v, *carry, (sq, 2 * sq),
-                                   causal=True)
-    if not all(torch.equal(a, b) for a, b in zip(got, carry)):
-        fail("K3: a fully masked hop changed the carry")
-    log("K3 fully masked hop: carry unchanged (bit for bit)")
-    del q, k, v, k0, v0, carry, got
+    for dtype, kernel in ((bf16, "flash_ws_kernel"), (f32, tc)):
+        q, k, v = _qkv(c["b"], c["h"], c["hkv"], sq, c["d"], dtype, seed + 2)
+        k0, v0 = _qkv(c["b"], c["hkv"], c["hkv"], sq, c["d"], dtype,
+                      seed + 3)[1:]
+        carry = fa.flash_carry_reference(
+            q, k0, v0, *fa.flash_init(c["b"], c["h"], sq, c["d"],
+                                      device="cuda"),
+            (sq, 0), causal=True, block_k=64)
+        errs.append(_flash_case(f"ring hop, diagonal, {dtype}", q, k, v,
+                                carry, (sq, sq), True, kernel=kernel))
+        # A hop wholly after the queries: nothing folds, the carry comes
+        # back.
+        got = fa.flash_attention_carry(q, k, v, *carry, (sq, 2 * sq),
+                                       causal=True)
+        if not all(torch.equal(a, b) for a, b in zip(got, carry)):
+            fail(f"K3 {kernel}: a fully masked hop changed the carry")
+        log(f"K3 fully masked hop ({kernel}): carry unchanged (bit for bit)")
+        del q, k, v, k0, v0, carry, got
     # Ragged q rows (not a multiple of the 128-row tile), both paths.
     for label, shape, dtype in (("ragged bf16", (1, 8, 2, 1000, 128), bf16),
                                 ("ragged f32 d=40", (1, 4, 2, 1000, 40),
@@ -682,6 +723,12 @@ def flash_vs_plain(seed: int, rate: float, flops_rate: float,
             f"{t['plain_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
             f"({t['bound_by']}) library_ms(SDPA)={t['library_ms']:.4f}; "
             f"{t['tflops']:.1f} TFLOP/s")
+    log(f"K3 Llama 3 8B layer, fp32: bound_ms={f32_t['bound_ms']:.4f} as "
+        f"3xTF32 at {tf32_rate / 1e12:.0f} TFLOP/s dense TF32; "
+        f"fma_bound_ms={f32_t['fma_bound_ms']:.4f} at the fp32 FMA peak "
+        f"{f32_rate / 1e12:.0f} TFLOP/s; kernel at "
+        f"{f32_t['bound_ms'] / f32_t['ms']:.1%} of the first, "
+        f"{f32_t['fma_bound_ms'] / f32_t['ms']:.1%} of the second")
     log("K3 build: " + _flash_build_report())
     return {"name": "brpc_flash_carry", "ported": True, "route": "cuda",
             "source": "brpc_tpu_torch/ops/csrc/flash_attention.cu",
@@ -698,17 +745,21 @@ def flash_vs_plain(seed: int, rate: float, flops_rate: float,
                                  "library_ms")}},
             "f32_shape": {"shape": "Llama 3 8B attention layer, b1 h32 hkv8 "
                                    "s8192 d128 fp32 causal "
-                                   "(flash_simt_kernel); bound at the fp32 "
-                                   f"peak {f32_rate / 1e12:.0f} TFLOP/s",
+                                   "(flash_tf32x3_kernel, 3xTF32 mma.sync); "
+                                   "bound: 3 TF32 products a product at "
+                                   f"{tf32_rate / 1e12:.0f} TFLOP/s dense "
+                                   "TF32; fma_bound_ms: the fp32 FMA peak "
+                                   f"{f32_rate / 1e12:.0f} TFLOP/s",
+                          "kernel": tc, "launches": None,
                           "max_abs_err": f32_err,
                           **{key: f32_t[key] for key in (
                               "ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms")}}}
+                              "fma_bound_ms", "library_ms")}}}
 
 
 def _flash_build_report() -> str:
     """Registers and spills ptxas reported for each K3 kernel, and the
-    dynamic shared memory a launch of the tensor-core kernel asks for."""
+    dynamic shared memory a launch of each tensor-core kernel asks for."""
     import ctypes
     import re
 
@@ -717,11 +768,11 @@ def _flash_build_report() -> str:
     log_text = str(_build.last_build.get("log", ""))
     found, kernel = [], None
     for ln in log_text.splitlines():
-        m = re.search(r"Compiling entry function '(\S*flash_(ws|simt)_kernel"
-                      r"I(Li(\d+)E|f|13__nv_bfloat16)\S*)'", ln)
+        m = re.search(r"Compiling entry function '(\S*flash_(ws|simt|tf32x3)"
+                      r"_kernelI(Li(\d+)E|f|13__nv_bfloat16)\S*)'", ln)
         if m:
-            kernel = (f"flash_ws_kernel<{m.group(4)}>" if m.group(2) == "ws"
-                      else "flash_simt_kernel<"
+            kernel = (f"flash_{m.group(2)}_kernel<{m.group(4)}>"
+                      if m.group(4) else "flash_simt_kernel<"
                       + ("float" if m.group(3) == "f" else "bf16") + ">")
         elif kernel and "spill" in ln:
             found.append(f"{kernel}: {ln.strip()}")
@@ -730,11 +781,15 @@ def _flash_build_report() -> str:
             kernel = None
     fn = _build.kernel("brpc_flash_ws_smem", [ctypes.c_int])
     smem = {d: int(fn(d)) for d in (64, 128)}
+    fn = _build.kernel("brpc_flash_tf32x3_smem", [ctypes.c_int])
+    smem_tc = {d: int(fn(d)) for d in (8, 16, 32, 64, 128, 256)}
     if not found:  # a cached library: this process did not build it
         found = ["ptxas report: not in this process (library cached)"]
-    return ("; ".join(found) + f"; dynamic shared memory a block: d=64 "
-            f"{smem[64]} B, d=128 {smem[128]} B (setmaxnreg: producer 24, "
-            "consumers 240 registers)")
+    return ("; ".join(found) + f"; dynamic shared memory a block: "
+            f"flash_ws_kernel d=64 {smem[64]} B, d=128 {smem[128]} B "
+            "(setmaxnreg: producer 24, consumers 240 registers); "
+            "flash_tf32x3_kernel " + ", ".join(
+                f"d<={d} {b} B" for d, b in smem_tc.items()))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -971,7 +1026,8 @@ def _counts() -> dict:
             "brpc_fused_momentum_bf16": fu.LAUNCHES_BF16,
             "brpc_dequant_int8": qz.LAUNCHES_INT8,
             "brpc_dequant_fp8e4m3": qz.LAUNCHES_FP8,
-            "brpc_flash_carry": fa.LAUNCHES}
+            "brpc_flash_carry": fa.LAUNCHES,
+            "brpc_flash_carry_tf32x3": fa.LAUNCHES_TF32X3}
 
 
 def _full(want: dict) -> dict:
@@ -1090,7 +1146,8 @@ def tensor_service_paths(seed: int) -> dict:
     # -- the dryrun entry point on a one-rank NCCL group
     _, launches["dryrun_multichip(1)"] = _counted(
         "dryrun_multichip(1), one-rank NCCL group",
-        lambda: ts.dryrun_multichip(1), {"brpc_flash_carry": 2})
+        lambda: ts.dryrun_multichip(1),
+        {"brpc_flash_carry": 2, "brpc_flash_carry_tf32x3": 2})
     return launches
 
 
@@ -3454,7 +3511,8 @@ def main() -> int:
     rows = kernels_vs_plain(args.seed, rate)
     rows.append(flash_vs_plain(args.seed, rate,
                                published_rate(name, _BF16_RATE),
-                               published_rate(name, _F32_RATE)))
+                               published_rate(name, _F32_RATE),
+                               published_rate(name, _TF32_RATE)))
     log(f"== phase 2 (kernels vs plain) {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     by_path = {"param_server": main_path(args.seed)}
@@ -3488,6 +3546,14 @@ def main() -> int:
         r["launches"] = sum(r["launches_by_path"].values())
         if not r["launches"] and r.get("on_path", True):
             fail(f"{r['name']} was launched on no path")
+        f32 = r.get("f32_shape")
+        if f32:  # K3's fp32 kernel, counted apart within brpc_flash_carry
+            f32["launches_by_path"] = {
+                p: c.get("brpc_flash_carry_tf32x3", 0)
+                for p, c in by_path.items()}
+            f32["launches"] = sum(f32["launches_by_path"].values())
+            if not f32["launches"]:
+                fail(f"{f32['kernel']} was launched on no path")
     log(f"== all phases {time.monotonic() - t_all:.1f} s")
     log(smi)
     print(json.dumps({"kernels": rows, "card": smi}), flush=True)

@@ -334,6 +334,8 @@ def test_fleet_oneside_client_launches_k2_once_per_eligible_name(cuda):
         (2, 4, 2, 32, 32, 8, True, (0, 0)),          # the dryrun shape
         (1, 2, 1, 48, 96, 256, False, (5, 7)),       # widest d
         (1, 3, 3, 33, 70, 40, True, (20, 0)),        # odd everything
+        (1, 2, 2, 40, 72, 12, True, (3, 0)),         # fp32 width class 16
+        (2, 2, 1, 100, 130, 32, True, (30, 0)),      # fp32 width class 32
     ])
 def test_flash_carry_kernel_matches_plain(cuda, dtype, b, h, hkv, sq, sk, d,
                                           causal, offsets):
@@ -413,16 +415,86 @@ def test_ws_block_with_no_live_tile_returns_the_carry(cuda, d):
     _assert_matches_plain(q, k, v, (m, l, acc), (0, 128), True, got)
 
 
-@pytest.mark.parametrize("dtype,d,misalign,want", [
-    (torch.bfloat16, 128, False, 128), (torch.bfloat16, 64, False, 128),
-    (torch.bfloat16, 32, False, 32), (torch.float32, 128, False, 32),
-    (torch.bfloat16, 128, True, 32)])
+# The fp32 tensor-core kernel (3xTF32; 128-row q tiles, 64-key tiles at
+# these widths) at the same edges: the ragged last k tile of sk 1000 holds
+# 40 keys, and the diagonal crosses its tiles mid-way.
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,offsets", [
+    (1000, 1000, (24, 0)),      # ragged sk and sq, diagonal mid-tile
+    (333, 1000, (700, 0)),      # ragged sq after most keys
+    (512, 512, (512, 512)),     # a ring hop on the diagonal
+    (512, 512, (1024, 512)),    # a ring hop wholly visible
+])
+def test_tf32x3_kernel_matches_plain_at_ragged_edges(cuda, d, sq, sk,
+                                                     offsets):
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + d)
+    q = torch.randn(1, 8, sq, d, generator=gen, device=cuda)
+    k = torch.randn(1, 2, sk, d, generator=gen, device=cuda)
+    v = torch.randn(1, 2, sk, d, generator=gen, device=cuda)
+    assert fa.kernel_name(q, k, v, q) == "flash_tf32x3_kernel"
+    assert fa.kernel_tile_k(q, k, v, q) == 64
+    m, l, acc = fa.flash_carry_reference(  # a carry that is not fresh
+        q, k, v, *fa.flash_init(1, 8, sq, d, device=cuda), (sk, 0),
+        causal=True, block_k=64, ragged_tail=True)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    got = fa.flash_attention_carry(q, k, v, m, l, acc, off, causal=True)
+    torch.cuda.synchronize()
+    _assert_matches_plain(q, k, v, (m, l, acc), offsets, True, got)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_tf32x3_block_with_no_live_tile_returns_the_carry(cuda, d):
+    # As the bf16 test: rows 0..127 (one block) end before the first key
+    # and come back bit for bit; rows 128..255 fold keys.
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn(1, 4, 256, d, generator=gen, device=cuda)
+               for _ in range(3))
+    m, l, acc = fa.flash_carry_reference(
+        q, k, v, *fa.flash_init(1, 4, 256, d, device=cuda), (512, 0),
+        causal=True, block_k=64, ragged_tail=True)
+    got = fa.flash_attention_carry(q, k, v, m, l, acc, (0, 128), causal=True)
+    torch.cuda.synchronize()
+    for g, before in zip(got, (m, l, acc)):
+        assert torch.equal(g[:, :, :128], before[:, :, :128])
+    assert not torch.equal(got[2][:, :, 128:], acc[:, :, 128:])
+    _assert_matches_plain(q, k, v, (m, l, acc), (0, 128), True, got)
+
+
+@pytest.mark.parametrize("dtype,d,misalign,want,kernel", [
+    (torch.bfloat16, 128, False, 128, "flash_ws_kernel"),
+    (torch.bfloat16, 64, False, 128, "flash_ws_kernel"),
+    (torch.bfloat16, 32, False, 32, "flash_simt_kernel"),
+    (torch.float32, 128, False, 64, "flash_tf32x3_kernel"),
+    (torch.float32, 8, False, 64, "flash_tf32x3_kernel"),
+    (torch.float32, 256, False, 32, "flash_tf32x3_kernel"),
+    (torch.float32, 6, False, 32, "flash_simt_kernel"),    # d % 4 != 0
+    (torch.float32, 128, True, 32, "flash_simt_kernel"),   # 4-byte aligned
+    (torch.bfloat16, 128, True, 32, "flash_simt_kernel")])
 def test_kernel_tile_k_follows_the_kernels_dispatch(cuda, dtype, d, misalign,
-                                                    want):
+                                                    want, kernel):
     base = torch.zeros(1 + 2 * 16 * d, device=cuda, dtype=dtype)
     q = base[int(misalign):int(misalign) + 2 * 16 * d].view(1, 2, 16, d)
     acc = fa.flash_init(1, 2, 16, d, device=cuda)[2]
     assert fa.kernel_tile_k(q, q, q, acc) == want
+    assert fa.kernel_name(q, q, q, acc) == kernel
+    before, before_tc = fa.LAUNCHES.value, fa.LAUNCHES_TF32X3.value
+    fa.flash_attention_carry(q, q, q, *fa.flash_init(1, 2, 16, d,
+                                                     device=cuda), (0, 0))
+    assert fa.LAUNCHES.value == before + 1
+    assert (fa.LAUNCHES_TF32X3.value
+            == before_tc + int(kernel == "flash_tf32x3_kernel"))
+
+
+def test_dryrun_rings_go_through_the_fp32_tensor_core_kernel(cuda):
+    # dryrun_multichip(1) on a one-rank NCCL group folds its two fp32 rings
+    # (d = 8) through flash_tf32x3_kernel, once each.
+    from brpc_tpu_torch.models import tensor_service as ts
+
+    before, before_tc = fa.LAUNCHES.value, fa.LAUNCHES_TF32X3.value
+    ts.dryrun_multichip(1)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES.value - before == 2
+    assert fa.LAUNCHES_TF32X3.value - before_tc == 2
 
 
 def test_flash_attention_kernel_matches_dense(cuda):

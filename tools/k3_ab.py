@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Times the port's flash carry kernel (K3) of several checkouts on one card.
 
-    python3 tools/k3_ab.py TREE [TREE ...] [--rounds N]
+    python3 tools/k3_ab.py TREE [TREE ...] [--rounds N] [--shapes NAME,...]
 
 Each TREE is the root of a checkout holding ``brpc_tpu_torch/``. Every
 round runs the trees in order and then in reverse (A B B A for two), each in
@@ -13,6 +13,8 @@ events (median of 10 timings of 3 back-to-back calls):
   (b8 h8 s4096 d128 bf16 non-causal), and SDPA on the same inputs;
 - the same at two non-causal shapes with long (16384) and short (1024)
   rows, which separate the kernel's steady rate from its cost per block;
+- the Llama layer in fp32 (the kernel's fp32 path; SDPA in fp32, TF32
+  off);
 - the 16 folds of a 4-shard ring replay of the Llama layer (device time of
   the whole replay, one event pair around it).
 
@@ -29,12 +31,13 @@ import statistics
 import subprocess
 import sys
 
-SHAPES = {"llama3_8b_layer": (1, 32, 8, 8192, 128, True),
-          "bench_flash_point": (8, 8, 8, 4096, 128, False),
+SHAPES = {"llama3_8b_layer": (1, 32, 8, 8192, 128, True, "bfloat16"),
+          "bench_flash_point": (8, 8, 8, 4096, 128, False, "bfloat16"),
           # Non-causal with long rows (128 k tiles a block) and short
           # ones (8): the kernel's steady rate and its cost per block.
-          "long_rows_s16384": (1, 8, 8, 16384, 128, False),
-          "short_rows_s1024": (32, 8, 8, 1024, 128, False)}
+          "long_rows_s16384": (1, 8, 8, 16384, 128, False, "bfloat16"),
+          "short_rows_s1024": (32, 8, 8, 1024, 128, False, "bfloat16"),
+          "llama3_8b_layer_fp32": (1, 32, 8, 8192, 128, True, "float32")}
 RING_SHARDS = 4
 
 
@@ -57,8 +60,9 @@ def _cuda_ms(fn, reps=10, inner=3, warm=3):
     return statistics.median(times)
 
 
-def one(tree: str) -> dict:
-    """Times one checkout's K3 in this process."""
+def one(tree: str, shapes) -> dict:
+    """Times one checkout's K3 at ``shapes`` (names of SHAPES) in this
+    process."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import torch.nn.functional as F
@@ -66,11 +70,14 @@ def one(tree: str) -> dict:
     from brpc_tpu_torch.ops import flash_attention as fa
     from brpc_tpu_torch.ops.ring_attention import hop_offsets
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     out = {"tree": tree}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, (b, h, hkv, s, d, causal) in SHAPES.items():
+    for name in shapes:
+        b, h, hkv, s, d, causal, dtype = SHAPES[name]
         mk = lambda n: torch.randn(b, n, s, d, generator=gen,  # noqa: E731
-                                   device="cuda").bfloat16()
+                                   device="cuda").to(getattr(torch, dtype))
         q, k, v = mk(h), mk(hkv), mk(hkv)
         m, l, acc = fa.flash_init(b, h, s, d, device="cuda")
         out[name] = _cuda_ms(lambda: fa.flash_attention_carry(
@@ -102,10 +109,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--shapes", default=",".join(SHAPES),
+                    help="comma-separated names of SHAPES (default: all)")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    shapes = args.shapes.split(",")
+    unknown = set(shapes) - set(SHAPES)
+    if unknown:
+        ap.error(f"unknown shapes {sorted(unknown)}; known: {list(SHAPES)}")
     if args.one:
-        print(json.dumps(one(args.one)), flush=True)
+        print(json.dumps(one(args.one, shapes)), flush=True)
         return 0
     import torch
 
@@ -121,8 +134,8 @@ def main() -> int:
     for _ in range(args.rounds):
         for tree in order + order[::-1]:
             r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                "--one", tree], capture_output=True,
-                               text=True)
+                                "--one", tree, "--shapes", args.shapes],
+                               capture_output=True, text=True)
             if r.returncode != 0:
                 print(r.stdout + r.stderr, file=sys.stderr)
                 return 1
