@@ -6,6 +6,15 @@ rotate around the ring by point-to-point sends (``batch_isend_irecv``, the
 port of ``jax.lax.ppermute``). After N-1 hops every query has attended to
 every key, and only one S/N-sized kv block is in flight per rank.
 
+The reference's schedule: its unrolled loop lets XLA run each hop's
+permute beside the previous fold, since the permute reads only the block
+the last hop delivered. Here the send of hop t+1 is started
+(``ring_shift_start``) before fold t is enqueued and waited on after it,
+so the transfer runs under the fold; n-1 shifts in all, the last block
+folded where it lands. Besides its own block a rank holds at most two kv
+blocks, the one it folds and the one arriving, as under XLA's
+asynchronous permute.
+
 Each hop is one ``flash_attention_carry`` (ops/flash_attention.py; the
 hand-written kernel K3 on the card): the visiting kv block is folded into
 the resident queries' fp32 (m, l, acc) carries, with the global q and kv
@@ -22,7 +31,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from brpc_tpu_torch.ops.flash_attention import (flash_attention_carry,
                                                 flash_finalize, flash_init)
-from brpc_tpu_torch.parallel.collectives import ring_shift
+from brpc_tpu_torch.parallel.collectives import ring_shift_start
 from brpc_tpu_torch.parallel.mesh import SHARD_AXIS
 
 
@@ -31,6 +40,23 @@ def hop_offsets(rank: int, hop: int, n: int, sq: int) -> tuple:
     with sq rows per shard: after ``hop`` rotations the rank holds the kv
     block of rank (rank - hop) mod n."""
     return rank * sq, ((rank - hop) % n) * sq
+
+
+def ring_replay(q, blocks, rank: int, n: int, *, causal: bool = False,
+                block_q: int = 1024, block_k: int = 1024) -> torch.Tensor:
+    """The folds of ``ring_attention`` on ``rank`` of an n-rank ring:
+    ``q`` is the rank's [batch, heads, seq/n, d] query block, ``blocks``
+    yields the (k, v) block of each hop in hop order (hop t's is rank
+    (rank - t) % n's). Given the blocks in one process, with no transfer,
+    it is the serialized replay the ring equals bit for bit."""
+    b, h, sq, d = q.shape
+    m, l, acc = flash_init(b, h, sq, d, device=q.device)
+    for hop, (k_blk, v_blk) in enumerate(blocks):
+        m, l, acc = flash_attention_carry(
+            q, k_blk, v_blk, m, l, acc, hop_offsets(rank, hop, n, sq),
+            causal=causal, block_q=min(block_q, sq),
+            block_k=min(block_k, sq))
+    return flash_finalize(l, acc, q.dtype)
 
 
 def ring_attention(mesh: DeviceMesh, axis: str = SHARD_AXIS, *,
@@ -48,24 +74,21 @@ def ring_attention(mesh: DeviceMesh, axis: str = SHARD_AXIS, *,
     n = mesh[axis].size()
     rank = mesh.get_local_rank(axis)
 
+    def arriving(k_blk, v_blk):
+        # Hop 0 is the resident block. Each hop's shift starts before the
+        # block is handed to its fold and is waited on when the next
+        # block is asked for, after that fold is enqueued; the last block
+        # is folded where it lands (n-1 shifts).
+        for hop in range(n):
+            shift = (ring_shift_start([k_blk, v_blk], group)
+                     if hop + 1 < n else None)
+            yield k_blk, v_blk
+            if shift is not None:
+                k_blk, v_blk = shift.wait()
+
     def _ring4(q, k, v):  # local blocks: [b, h, seq/n, d]
-        b, h, sq, d = q.shape
-        m, l, acc = flash_init(b, h, sq, d, device=q.device)
-
-        def fold(hop, k_blk, v_blk, m, l, acc):
-            return flash_attention_carry(
-                q, k_blk, v_blk, m, l, acc, hop_offsets(rank, hop, n, sq),
-                causal=causal, block_q=min(block_q, sq),
-                block_k=min(block_k, sq))
-
-        # Hop 0: the resident kv block, no transfer. Then exactly n-1
-        # rotate-and-fold hops; the last block is folded where it lands.
-        m, l, acc = fold(0, k, v, m, l, acc)
-        k_blk, v_blk = k, v
-        for hop in range(1, n):
-            k_blk, v_blk = ring_shift([k_blk, v_blk], group)
-            m, l, acc = fold(hop, k_blk, v_blk, m, l, acc)
-        return flash_finalize(l, acc, q.dtype)
+        return ring_replay(q, arriving(k, v), rank, n, causal=causal,
+                           block_q=block_q, block_k=block_k)
 
     def run(q, k, v):
         if q.dim() == 3:  # single-head convenience: [b, s, d]

@@ -5,10 +5,12 @@ program over a global array; here each rank calls the returned function on
 its own block, and the collective runs over the process group of one mesh
 dimension (``mesh.get_group(axis)``): NCCL between cards, gloo on the CPU
 and between ranks that share one card (``launch.run_ranks(...,
-share_card=True)``). gloo takes CUDA tensors for every verb here (torch
-2.11: all_reduce, broadcast, gather, all_gather_into_tensor,
+share_card=True)``). gloo takes CUDA tensors for the collective verbs
+(torch 2.11: all_reduce, broadcast, gather, all_gather_into_tensor,
 reduce_scatter_tensor, checked on an H100 host) and stages them through
-the host inside the backend, so no verb moves a tensor itself.
+the host inside the backend. Its point-to-point verbs hand the tensor's
+data pointer to the transport as it is, so ``ring_shift_start`` stages
+CUDA tensors on a gloo group through pinned host buffers itself.
 
 - ParallelChannel broadcast + ResponseMerger -> ``fanout_gather`` (all_gather)
   / ``fanout_reduce`` (all_reduce)
@@ -27,28 +29,104 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from brpc_tpu_torch.collectives.ring import chunk_spans
+from brpc_tpu_torch.ops._build import LaunchCounter
 from brpc_tpu_torch.parallel.mesh import CLIENT_AXIS, SHARD_AXIS
 
 
-def ring_shift(tensors, group) -> list:
+class RingShift:
+    """A ring shift in flight (``ring_shift_start``). It holds the tensors
+    being sent until ``wait()``: none goes back to the caching allocator
+    while a transfer may still read it, whatever the backend does about
+    recording streams."""
+
+    def __init__(self, out, keep, works=(), copy_back=None):
+        self._out, self._keep, self._works = out, keep, list(works)
+        self._copy_back = copy_back  # staged: (side stream, host buffers)
+
+    def wait(self) -> list:
+        """The received tensors, ready on the caller's current stream. On
+        NCCL that stream waits for NCCL's and the host does not block; on
+        gloo the host blocks until the transfer is done and, staged, the
+        current stream waits for the copy back to the card."""
+        if self._out is None:
+            raise RuntimeError("RingShift.wait() called twice")
+        for work in self._works:
+            work.wait()
+        if self._copy_back is not None:
+            side, recv = self._copy_back
+            with torch.cuda.stream(side):
+                for o, r in zip(self._out, recv):
+                    o.copy_(r, non_blocking=True)
+            torch.cuda.current_stream(side.device).wait_stream(side)
+        out = self._out
+        self._out = self._keep = self._works = self._copy_back = None
+        return out
+
+
+# Shifts started in this process (``ring_shift_start``), read as the
+# kernels' launch counts are.
+SHIFTS = LaunchCounter("ring_shift_start")
+
+
+def stages_through_host(backend: str, device: torch.device) -> bool:
+    """Whether ``ring_shift_start`` copies the tensors through pinned host
+    buffers: CUDA tensors on a gloo group (ranks that share one card).
+    NCCL, and gloo on CPU tensors, move the tensors themselves."""
+    return backend == "gloo" and device.type == "cuda"
+
+
+def _p2p_ops(send, recv, nxt, prv, group) -> list:
+    ops = []
+    for t, r in zip(send, recv):
+        ops.append(dist.P2POp(dist.isend, t, nxt, group))
+        ops.append(dist.P2POp(dist.irecv, r, prv, group))
+    return ops
+
+
+def ring_shift_start(tensors, group) -> RingShift:
     """Each rank of ``group`` sends its tensors to the next rank and
     receives the previous rank's (block i moves to (i + 1) % n), all in one
-    ``batch_isend_irecv``. Returns fresh tensors."""
+    ``batch_isend_irecv``, and returns without waiting for the transfer;
+    ``wait()`` on the handle gives fresh tensors. Work the caller enqueues
+    before ``wait()`` runs beside the transfer. CUDA tensors on a gloo
+    group (``stages_through_host``) are copied to pinned host buffers on a
+    side stream once the caller's stream reaches the shift (the host waits
+    for that copy), the host buffers are exchanged, and ``wait()`` copies
+    the received ones back on the side stream."""
     n = dist.get_world_size(group)
     tensors = [t.contiguous() for t in tensors]
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"ring_shift_start: tensors on {devices}")
+    SHIFTS.add()
     if n == 1:
-        return [t.clone() for t in tensors]
+        return RingShift([t.clone() for t in tensors], tensors)
     me = dist.get_rank(group)
     nxt = dist.get_global_rank(group, (me + 1) % n)
     prv = dist.get_global_rank(group, (me - 1) % n)
     out = [torch.empty_like(t) for t in tensors]
-    ops = []
-    for t, r in zip(tensors, out):
-        ops.append(dist.P2POp(dist.isend, t, nxt, group))
-        ops.append(dist.P2POp(dist.irecv, r, prv, group))
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    return out
+    dev = tensors[0].device
+    if not stages_through_host(dist.get_backend(group), dev):
+        works = dist.batch_isend_irecv(_p2p_ops(tensors, out, nxt, prv,
+                                                group))
+        return RingShift(out, tensors, works)
+    side = torch.cuda.Stream(dev)
+    send = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    recv = [torch.empty_like(h, pin_memory=True) for h in send]
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for h, t in zip(send, tensors):
+            h.copy_(t, non_blocking=True)
+    side.synchronize()
+    works = dist.batch_isend_irecv(_p2p_ops(send, recv, nxt, prv, group))
+    return RingShift(out, tensors + send, works, copy_back=(side, recv))
+
+
+def ring_shift(tensors, group) -> list:
+    """``ring_shift_start(tensors, group).wait()``: block i moves to
+    (i + 1) % n; returns fresh tensors."""
+    return ring_shift_start(tensors, group).wait()
 
 
 def fanout_gather(mesh: DeviceMesh, axis: str = SHARD_AXIS):

@@ -26,8 +26,12 @@ checkout. Phases, each fatal on failure:
   4. the TensorService paths: train_step at the GPT-2 small MLP width
      (3 steps, bit-identical to a plain replay, 2 K1 launches a step);
      a 4-shard ring replay of the Llama layer through K3 (16 launches),
-     equal to one-shot flash attention; dryrun_multichip(1) on a one-rank
-     NCCL group;
+     equal to one-shot flash attention; the port's ring_attention over 4
+     spawned ranks sharing the card over gloo at the same layer, each
+     rank's output equal to its replay bit for bit, 3 shifts a rank and
+     16 K3 launches over the ranks, with each rank's ring, its hops alone
+     and its folds alone timed; dryrun_multichip(1) on a one-rank NCCL
+     group;
   5. the parameter-server fleet at the same GPT-2 small parameter set,
      both shards on the card: install, a raw pull_all, an int8 push_all,
      a second shard joins and the Migrator (on the registry's watch edge)
@@ -1059,14 +1063,76 @@ def _counted(label: str, fn, want):
     return out, {name: n for name, n in got.items() if n}
 
 
-def tensor_service_paths(seed: int) -> dict:
-    """train_step, the ring replay and dryrun_multichip(1); returns each
-    path's launch counts."""
+def _rank_ms(fn, reps: int = 10) -> float:
+    """Median CUDA-event time of ``fn`` on this rank, the ranks lined up
+    by a barrier and the card idle before each run (one warm run)."""
+    import torch
+    import torch.distributed as dist
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        dist.barrier()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _ring_rank(seed: int) -> dict:
+    """A spawned rank of phase 4's shared-card ring: ``ring_attention``
+    over its shard of the Llama layer (its K3 launches and shifts
+    counted), then the ring, its n-1 hops alone and its n folds alone
+    (``ring_replay`` on the blocks the hops deliver) timed."""
+    import torch
+    import torch.distributed as dist
+
+    from brpc_tpu_torch.ops import flash_attention as fa
+    from brpc_tpu_torch.ops import ring_attention as ra
+    from brpc_tpu_torch.parallel import collectives as col
+    from brpc_tpu_torch.parallel.mesh import make_mesh
+
+    c, n = LLAMA3_8B_ATTN, RING_SHARDS
+    rank, sq = dist.get_rank(), c["s"] // n
+    q, k, v = (t[:, :, rank * sq:(rank + 1) * sq].contiguous() for t in
+               _qkv(c["b"], c["h"], c["hkv"], c["s"], c["d"],
+                    torch.bfloat16, seed))
+    mesh = make_mesh(client=1, shard=n)
+    group = mesh.get_group("shard")
+    ring = ra.ring_attention(mesh, causal=True)
+    k3, shifts = fa.LAUNCHES.value, col.SHIFTS.value
+    out = ring(q, k, v)
+    torch.cuda.synchronize()
+    k3, shifts = fa.LAUNCHES.value - k3, col.SHIFTS.value - shifts
+    blocks = [(k, v)]
+    for _ in range(n - 1):
+        blocks.append(tuple(col.ring_shift(list(blocks[-1]), group)))
+
+    def hops():
+        kb, vb = k, v
+        for _ in range(n - 1):
+            kb, vb = col.ring_shift([kb, vb], group)
+
+    return {"rank": rank, "out": out.cpu(), "k3": k3, "shifts": shifts,
+            "ring_ms": _rank_ms(lambda: ring(q, k, v)),
+            "hops_ms": _rank_ms(hops), "folds_ms": _rank_ms(
+                lambda: ra.ring_replay(q, blocks, rank, n, causal=True))}
+
+
+def tensor_service_paths(seed: int, smi: str) -> dict:
+    """train_step, the ring replay, the port's ring over ranks sharing the
+    card and dryrun_multichip(1); returns each path's launch counts."""
     import torch
 
     from brpc_tpu_torch.models import tensor_service as ts
     from brpc_tpu_torch.ops import flash_attention as fa
     from brpc_tpu_torch.ops.ring_attention import hop_offsets
+    from brpc_tpu_torch.parallel.launch import run_ranks
 
     launches = {}
     # -- train_step at the GPT-2 small MLP width
@@ -1104,7 +1170,7 @@ def tensor_service_paths(seed: int) -> dict:
     q, k, v = _qkv(c["b"], c["h"], c["hkv"], c["s"], c["d"],
                    torch.bfloat16, seed)
     n, sq = RING_SHARDS, c["s"] // RING_SHARDS
-    outs = []
+    outs, carries = [], []
 
     folds = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
 
@@ -1121,6 +1187,7 @@ def tensor_service_paths(seed: int) -> dict:
                 m, l, acc = fa.flash_attention_carry(
                     qr, kb, vb, m, l, acc, (q_off, kv_off), causal=True)
             outs.append(fa.flash_finalize(l, acc, torch.float32))
+            carries.append((l, acc))
         folds[1].record()
 
     _, launches["ring_replay"] = _counted(
@@ -1141,7 +1208,46 @@ def tensor_service_paths(seed: int) -> dict:
     log(f"  ring == one-shot flash_attention: max err {err:.3g}")
     if not err <= FLASH_TOL["bf16"]:
         fail(f"ring replay != one-shot flash attention (max err {err})")
-    del q, k, v, outs, ring_out, one_shot, m, l, acc
+
+    # -- the port's ring_attention over n ranks sharing the card (gloo):
+    # each rank's output is its replay's, finalized in the input type.
+    replays = [fa.flash_finalize(l, acc, torch.bfloat16).cpu()
+               for l, acc in carries]
+    ranks, _ = _counted(
+        f"ring_attention, {n} ranks sharing the card over gloo",
+        lambda: run_ranks(n, _ring_rank, (seed,), device_type="cuda",
+                          share_card=True, timeout_s=600), {})
+    for r in ranks:
+        if not torch.equal(r["out"], replays[r["rank"]]):
+            diff = (r["out"].float() - replays[r["rank"]].float()).abs()
+            fail(f"ring_attention rank {r['rank']} != its ring replay: max "
+                 f"err {diff.max().item()}")
+        if r["shifts"] != n - 1:
+            fail(f"ring_attention rank {r['rank']} made {r['shifts']} "
+                 f"shifts, not {n - 1}")
+        log(f"  rank {r['rank']}: ring {r['ring_ms']:.4f} ms, its {n - 1} "
+            f"hops alone {r['hops_ms']:.4f} ms, its {n} folds alone "
+            f"{r['folds_ms']:.4f} ms (CUDA events, medians of 10; {smi})")
+    k3 = sum(r["k3"] for r in ranks)
+    if k3 != n * n:
+        fail(f"ring_attention launched K3 {k3} times over the ranks, not "
+             f"{n * n}")
+    launches[f"ring_attention ({n} ranks, one card)"] = {
+        "brpc_flash_carry": k3}
+    whole = torch.cat([r["out"] for r in sorted(ranks,
+                                                key=lambda r: r["rank"])],
+                      dim=2).float()
+    ref = one_shot.cpu()
+    # FLASH_TOL on acc/l as above, plus the output's own bf16 rounding.
+    excess = ((whole - ref).abs() - 2.0 ** -8 * ref.abs()).max().item()
+    log(f"  ring_attention == its replay on every rank (bit for bit), "
+        f"{n - 1} shifts a rank, K3 {k3} over the ranks; == one-shot "
+        f"flash_attention: max err beyond one bf16 step {excess:.3g}")
+    if not excess <= FLASH_TOL["bf16"]:
+        fail(f"ring_attention over {n} ranks != one-shot flash attention "
+             f"({excess} beyond one bf16 step)")
+    del q, k, v, outs, carries, replays, ranks, whole, ref, ring_out, \
+        one_shot, m, l, acc
 
     # -- the dryrun entry point on a one-rank NCCL group
     _, launches["dryrun_multichip(1)"] = _counted(
@@ -3518,7 +3624,7 @@ def main() -> int:
     by_path = {"param_server": main_path(args.seed)}
     log(f"== phase 3 (parameter-server path) {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
-    by_path.update(tensor_service_paths(args.seed))
+    by_path.update(tensor_service_paths(args.seed, smi))
     log(f"== phase 4 (TensorService paths) {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     by_path["fleet"] = fleet_path(args.seed, smi)

@@ -532,36 +532,56 @@ def test_flash_carry_kernel_refuses_what_it_does_not_take(cuda):
 # queries over the kv blocks sent around the ring; the result equals
 # one-card flash attention on the whole sequence (kv blocks fold in
 # another order, so p is rounded at other running maxima: acc/l to 4e-3,
-# plus one bf16 step of the output).
+# plus one bf16 step of the output), and each rank's output equals the
+# same folds replayed on that rank with no transfer, bit for bit.
 RING_CARDS = 4
 RING_SHAPE = dict(b=1, h=32, hkv=8, s=8192, d=128)  # Llama 3 8B layer
+# Four gloo ranks sharing one card (CUDA tensors staged through the host).
+SHARED_RING_SHAPE = dict(b=1, h=4, hkv=2, s=1024, d=64)
 
 
-def _ring_inputs():
+def _ring_inputs(shape=RING_SHAPE):
     gen = torch.Generator(device="cuda").manual_seed(11)
-    c = RING_SHAPE
+    c = shape
     mk = lambda h: torch.randn(c["b"], h, c["s"], c["d"], generator=gen,  # noqa: E731
                                device="cuda").to(torch.bfloat16)
     return mk(c["h"]), mk(c["hkv"]), mk(c["hkv"])
 
 
-def _nccl_ring_rank():
+def _ring_card_rank(shape, dryrun):
+    """One rank's ring on its card: (its output, K3 launches, shifts,
+    whether the output equals its replay bit for bit)."""
     import torch.distributed as dist
 
     from brpc_tpu_torch.models.tensor_service import dryrun_multichip
-    from brpc_tpu_torch.ops.ring_attention import ring_attention
+    from brpc_tpu_torch.ops import ring_attention as ra
+    from brpc_tpu_torch.parallel import collectives as col
     from brpc_tpu_torch.parallel.mesh import make_mesh
 
-    rank = dist.get_rank()
-    mesh = make_mesh(client=1, shard=RING_CARDS)
-    q, k, v = (t.chunk(RING_CARDS, dim=2)[rank].contiguous()
-               for t in _ring_inputs())
-    before = fa.LAUNCHES.value
-    out = ring_attention(mesh, causal=True)(q, k, v)
+    rank, n = dist.get_rank(), dist.get_world_size()
+    mesh = make_mesh(client=1, shard=n)
+    full = _ring_inputs(shape)
+    q, k, v = (t.chunk(n, dim=2)[rank].contiguous() for t in full)
+    before, shifts = fa.LAUNCHES.value, col.SHIFTS.value
+    out = ra.ring_attention(mesh, causal=True)(q, k, v)
     torch.cuda.synchronize()
     launches = fa.LAUNCHES.value - before
-    dryrun_multichip(RING_CARDS)
-    return out.float().cpu().numpy(), launches
+    shifts = col.SHIFTS.value - shifts
+    blocks = [tuple(t.chunk(n, dim=2)[(rank - hop) % n].contiguous()
+                    for t in full[1:]) for hop in range(n)]
+    replayed = torch.equal(out, ra.ring_replay(q, blocks, rank, n,
+                                               causal=True))
+    if dryrun:
+        dryrun_multichip(n)
+    return out.float().cpu().numpy(), launches, shifts, replayed
+
+
+def _check_ring_ranks(results, shape):
+    n = len(results)
+    assert [r[1:] for r in results] == [(n, n - 1, True)] * n
+    got = torch.from_numpy(np.concatenate([r[0] for r in results], axis=2))
+    ref = fa.flash_attention(*_ring_inputs(shape), causal=True).float().cpu()
+    assert ((got - ref).abs() <= 4e-3 + 2.0 ** -8 * ref.abs()).all()
 
 
 def test_ring_attention_over_nccl_matches_one_card(cuda):
@@ -571,12 +591,19 @@ def test_ring_attention_over_nccl_matches_one_card(cuda):
     from brpc_tpu_torch.parallel.launch import run_ranks
 
     _build.load()  # build once here, before the ranks start
-    results = run_ranks(RING_CARDS, _nccl_ring_rank, device_type="cuda",
-                        timeout_s=300)
-    assert [n for _, n in results] == [RING_CARDS] * RING_CARDS
-    got = torch.from_numpy(np.concatenate([o for o, _ in results], axis=2))
-    ref = fa.flash_attention(*_ring_inputs(), causal=True).float().cpu()
-    assert ((got - ref).abs() <= 4e-3 + 2.0 ** -8 * ref.abs()).all()
+    results = run_ranks(RING_CARDS, _ring_card_rank, (RING_SHAPE, True),
+                        device_type="cuda", timeout_s=300)
+    _check_ring_ranks(results, RING_SHAPE)
+
+
+def test_ring_attention_shares_one_card_over_gloo(cuda):
+    from brpc_tpu_torch.ops import _build
+    from brpc_tpu_torch.parallel.launch import run_ranks
+
+    _build.load()
+    results = run_ranks(4, _ring_card_rank, (SHARED_RING_SHAPE, False),
+                        device_type="cuda", share_card=True, timeout_s=300)
+    _check_ring_ranks(results, SHARED_RING_SHAPE)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,12 @@ the fixture that runs the JAX side) computes, from the same numpy inputs:
 - ``ring_attention`` causal and not, GQA, the 3-D form and extreme scores
   (the cases of tests/test_flash_attention.py:58-95 and
   tests/test_data_plane.py:150-186);
+- the ring's schedule: the order in which each rank starts its shifts,
+  folds and waits (``ring_shift_start`` and ``flash_attention_carry``
+  wrapped in the ranks), and each rank's output against a serialized
+  replay of the same folds (``hop_offsets``, in order), bit for bit;
+- a ``ring_shift_start`` handle holds the tensor it sends until
+  ``wait()``;
 - ``make_sharded_train_step`` on a 2x2 mesh, with the reference's
   n_shard-times gradient of w1, b1 and w2 pinned;
 - ``dryrun_multichip(4, device="cpu")`` inside the group.
@@ -107,14 +113,32 @@ def _rank_body(inp):
     out["a2a"] = col.all_to_all_reshard(ring)(
         t(chunk(inp["a2a"], N, rank))).numpy()
 
-    for name, (_s, hkv, causal, block, _seed, n) in RING_CASES.items():
-        mesh, idx = (mesh14, rank) if n == 4 else (mesh22, si)
-        dim = -2 if hkv is not None else 1
+    for name, (mesh, idx, n, causal, block) in _ring_runs(
+            rank, mesh22, mesh14).items():
+        dim = 1 if inp[name][0].ndim == 3 else 2
         q, k, v = (t(chunk(a, n, idx, dim)) for a in inp[name])
-        out[name] = ring_attention(mesh, causal=causal, block_q=block,
-                                   block_k=block)(q, k, v).numpy()
-    q, k, v = (t(chunk(a, N, rank, 1)) for a in inp["extreme"])
-    out["extreme"] = ring_attention(mesh14)(q, k, v).numpy()
+        shifts = col.SHIFTS.value
+        with _recorded() as log:
+            out[name] = ring_attention(mesh, causal=causal, block_q=block,
+                                       block_k=block)(q, k, v).numpy()
+        out["order_" + name] = log
+        out["shifts_" + name] = col.SHIFTS.value - shifts
+        out["replay_" + name] = _serial_replay(
+            *(t(a) for a in inp[name]), idx, n, causal, block).numpy()
+
+    import gc
+    import weakref
+
+    x = torch.arange(8, dtype=torch.float32) + rank
+    sent = weakref.ref(x)
+    shift = col.ring_shift_start([x], ring.get_group("shard"))
+    del x
+    gc.collect()
+    out["held_until_wait"] = sent() is not None
+    (y,) = shift.wait()
+    gc.collect()
+    out["released_after_wait"] = sent() is None
+    out["shift_got"] = y.numpy()
 
     state = ts.shard_state(psstate_from_numpy(inp["state"], device="cpu"),
                            mesh22)
@@ -127,6 +151,66 @@ def _rank_body(inp):
     ts.dryrun_multichip(N, device="cpu")
     out["dryrun"] = True
     return out
+
+
+def _ring_runs(rank, mesh22, mesh14) -> dict:
+    """name -> (mesh, this rank's index on its shard axis, shards, causal,
+    block) of every ring run; "extreme" takes ring_attention's defaults."""
+    runs = {name: ((mesh14, rank) if n == 4 else (mesh22, rank % 2))
+            + (n, causal, block)
+            for name, (_s, _h, causal, block, _seed, n) in RING_CASES.items()}
+    runs["extreme"] = (mesh14, rank, N, False, 1024)
+    return runs
+
+
+class _recorded:
+    """Wraps ``ring_shift_start`` (and the handles it returns) and
+    ``flash_attention_carry`` in ring_attention's module for the scope;
+    the log lists "shift", ("fold", q_off, kv_off) and "wait" in the order
+    the ring called them."""
+
+    def __enter__(self):
+        from brpc_tpu_torch.ops import ring_attention as ra
+
+        self.ra, log = ra, []
+        self.saved = (ra.ring_shift_start, ra.flash_attention_carry)
+        start, carry = self.saved
+
+        def shift(tensors, group):
+            log.append("shift")
+            handle = start(tensors, group)
+            wait = handle.wait
+            handle.wait = lambda: log.append("wait") or wait()
+            return handle
+
+        def fold(q, k, v, m, l, acc, offsets, **kw):
+            log.append(("fold", *map(int, offsets)))
+            return carry(q, k, v, m, l, acc, offsets, **kw)
+
+        ra.ring_shift_start, ra.flash_attention_carry = shift, fold
+        return log
+
+    def __exit__(self, *exc):
+        self.ra.ring_shift_start, self.ra.flash_attention_carry = self.saved
+
+
+def _serial_replay(q, k, v, idx, n, causal, block):
+    """Rank ``idx``'s ring output folded in one process with no transfer
+    (``ring_replay``): its queries over every hop's kv block, in hop
+    order, with the ring's tiles. q, k, v: the whole sequence, [b, s, d]
+    or [b, h, s, d]."""
+    from brpc_tpu_torch.ops.ring_attention import ring_replay
+
+    three_d = q.dim() == 3
+    if three_d:
+        q, k, v = q[:, None], k[:, None], v[:, None]
+    sq = q.shape[2] // n
+    rows = lambda t, off: t[:, :, off:off + sq].contiguous()  # noqa: E731
+    blocks = [(rows(k, kv_off), rows(v, kv_off)) for _q_off, kv_off in
+              (hop_offsets(idx, hop, n, sq) for hop in range(n))]
+    out = ring_replay(rows(q, idx * sq), blocks, idx, n, causal=causal,
+                      block_q=block, block_k=block)
+    return out[:, 0] if three_d else out
 
 
 def _jax_side(inp):
@@ -271,6 +355,56 @@ def test_ring_attention_matches_jax_and_dense(runs, name):
     dense = (dense_attention_reference(q, k, v) if three_d
              else dense_attention_mh(q, k, v, causal=causal))
     np.testing.assert_allclose(got, dense.numpy(), atol=3e-5, rtol=3e-5)
+
+
+def _expected_order(idx, n, sq):
+    """The reference's schedule on rank ``idx``: hop t+1's shift starts
+    before fold t and is waited on after it; n-1 shifts, none after the
+    last fold."""
+    want = []
+    for hop in range(n):
+        last = hop + 1 == n
+        want += ([] if last else ["shift"]) + [
+            ("fold", *hop_offsets(idx, hop, n, sq))] + ([] if last
+                                                        else ["wait"])
+    return want
+
+
+@pytest.mark.parametrize("name", sorted(RING_CASES) + ["extreme"])
+def test_ring_attention_sends_the_next_hop_before_each_fold(runs, name):
+    inp, port, _jax = runs
+    n = RING_CASES[name][-1] if name in RING_CASES else N
+    dim = 1 if inp[name][0].ndim == 3 else 2
+    sq = inp[name][0].shape[dim] // n
+    for rank, res in enumerate(port):
+        log = res["order_" + name]
+        assert log == _expected_order(rank % n, n, sq), (rank, log)
+        assert log.count("shift") == res["shifts_" + name] == n - 1
+
+
+@pytest.mark.parametrize("name", sorted(RING_CASES) + ["extreme"])
+def test_ring_attention_equals_its_serialized_replay_bit_for_bit(runs, name):
+    _inp, port, _jax = runs
+    for res in port:
+        np.testing.assert_array_equal(res[name], res["replay_" + name])
+
+
+def test_ring_shift_start_holds_what_it_sends_until_wait(runs):
+    _inp, port, _jax = runs
+    for rank, res in enumerate(port):
+        assert res["held_until_wait"] and res["released_after_wait"]
+        np.testing.assert_array_equal(
+            res["shift_got"], np.arange(8, dtype=np.float32) + (rank - 1) % N)
+
+
+@pytest.mark.parametrize("backend,device,staged", [
+    ("gloo", "cuda:0", True), ("nccl", "cuda:0", False),
+    ("gloo", "cpu", False)])
+def test_ring_shift_stages_cuda_tensors_on_gloo_only(backend, device,
+                                                     staged):
+    from brpc_tpu_torch.parallel.collectives import stages_through_host
+
+    assert stages_through_host(backend, torch.device(device)) is staged
 
 
 _SHARD_DIM = {"w1": 1, "b1": 0, "m_w1": 1, "w2": 0, "m_w2": 0}

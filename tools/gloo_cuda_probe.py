@@ -9,12 +9,17 @@ group (as ``parallel.launch.run_ranks(..., share_card=True)`` does) and
 tries all_reduce, broadcast, reduce, gather, all_gather,
 all_gather_into_tensor and reduce_scatter_tensor on CUDA tensors, then
 times all_reduce of ``--mb`` MB on the card, the same through an explicit
-host copy, and a broadcast (mean of 5 after one warm call). Last, a
+host copy, and a broadcast (mean of 5 after one warm call). Then, for
+each point-to-point form (isend/irecv, batch_isend_irecv), two ranks on
+``cuda:0`` over gloo swap a CUDA tensor, each form in a spawn of its own
+under a 60 s gloo timeout, and the probe prints whether the received
+values are right, the call was refused, or a rank died. Last, a
 one-rank NCCL group tries the verbs the mesh harness uses. Prints one
 line per rank; needs one CUDA card.
 """
 
 import argparse
+import datetime
 import os
 import tempfile
 import time
@@ -89,6 +94,50 @@ def _rank(rank: int, world: int, store: str, mb: float) -> None:
     dist.destroy_process_group()
 
 
+P2P_FORMS = ("isend_irecv", "batch_isend_irecv")
+
+
+def _p2p_rank(rank: int, store: str, form: str) -> None:
+    """Two ranks on cuda:0 over gloo swap a CUDA tensor by ``form``."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=60))
+    x = torch.arange(1024, dtype=torch.float32, device="cuda") + 1000 * rank
+    got = torch.full_like(x, -1.0)
+    peer = 1 - rank
+    try:
+        if form == "isend_irecv":
+            works = [dist.isend(x, peer), dist.irecv(got, peer)]
+        else:
+            works = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, peer),
+                                            dist.P2POp(dist.irecv, got,
+                                                       peer)])
+        for w in works:
+            w.wait()
+        torch.cuda.synchronize()
+        want = torch.arange(1024, dtype=torch.float32,
+                            device="cuda") + 1000 * peer
+        res = "ok" if torch.equal(got, want) else \
+            f"wrong values (first {got[:4].tolist()})"
+    except Exception as e:  # noqa: BLE001 — the probe reports it
+        res = f"refused: {type(e).__name__}: " + \
+            str(e).splitlines()[0][:160]
+    print(f"gloo p2p {form} rank {rank}: {res}", flush=True)
+    dist.destroy_process_group()
+
+
+def _p2p_probe(form: str) -> None:
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            mp.start_processes(_p2p_rank, args=(os.path.join(d, "store"),
+                                                form),
+                               nprocs=2, join=True, start_method="spawn")
+        except Exception as e:  # noqa: BLE001 — a rank died: reported
+            print(f"gloo p2p {form}: a rank died: {type(e).__name__}: "
+                  + str(e).splitlines()[0][:160], flush=True)
+
+
 def _nccl_one_rank() -> None:
     with tempfile.TemporaryDirectory() as d:
         dist.init_process_group("nccl", init_method="file://" +
@@ -114,6 +163,8 @@ def main() -> None:
             mp.start_processes(_rank, args=(world, os.path.join(d, "store"),
                                             args.mb),
                                nprocs=world, join=True, start_method="spawn")
+    for form in P2P_FORMS:
+        _p2p_probe(form)
     _nccl_one_rank()
 
 
