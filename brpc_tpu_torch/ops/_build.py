@@ -56,9 +56,9 @@ class LaunchCounter:
         self._n = 0
         self._mu = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._mu:
-            self._n += 1
+            self._n += n
 
     @property
     def value(self) -> int:

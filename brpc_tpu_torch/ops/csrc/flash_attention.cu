@@ -111,6 +111,9 @@ struct Params {
   int h, hkv, sq, sk, d;
   int causal;
   float scale;
+  // flash_simt_kernel only: the scores' column chunk of d, and the
+  // columns [c0, c0 + dc) of acc this launch owns (set by launch_simt).
+  int dk, dc, c0;
 };
 
 __device__ __forceinline__ void read_offsets(const Params& p, int* q_off,
@@ -869,44 +872,66 @@ __device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-size_t simt_smem_bytes(int d) {
-  const int ld = d + 1;
-  return sizeof(float) * (static_cast<size_t>(kSimtBM + kSimtBN) * ld +
-                          static_cast<size_t>(kSimtBN + kSimtBM) * d +
+// Shared memory of a SIMT block that takes the scores over dk columns of
+// d at a time and owns dc columns of acc.
+size_t simt_smem_bytes(int dk, int dc) {
+  return sizeof(float) * (static_cast<size_t>(kSimtBM + kSimtBN) * (dk + 1) +
+                          static_cast<size_t>(kSimtBN + kSimtBM) * dc +
                           kSimtBM * kSimtBN + 3 * kSimtBM);
 }
 
+// Each block owns one (q tile, b*h) pair of a 1-D grid, heaviest q tiles
+// first as in the tensor-core kernels, and columns [c0, c0 + dc) of acc:
+// every launch of a column-chunked fold computes the full q.k^T scores
+// and the same (m, l), and the chunk at c0 == 0 stores them. The scores
+// are summed over d in chunks of dk columns staged in shared memory (Q
+// stays resident when dk == d); each thread keeps its dot products in
+// registers across the chunks, so the sum runs over d in one order
+// whatever dk is.
 template <typename T>
 __global__ void __launch_bounds__(kSimtThreads) flash_simt_kernel(Params p) {
+  constexpr int kPer = kSimtBM * kSimtBN / kSimtThreads;  // scores a thread
   extern __shared__ float smf[];
-  const int d = p.d, ld = d + 1;
+  const int d = p.d, dk = p.dk, dc = p.dc, c0 = p.c0, ld = dk + 1;
   float* sQ = smf;                    // [BM][ld]
   float* sK = sQ + kSimtBM * ld;      // [BN][ld]
-  float* sV = sK + kSimtBN * ld;      // [BN][d]
-  float* sAcc = sV + kSimtBN * d;     // [BM][d]
-  float* sP = sAcc + kSimtBM * d;     // [BM][BN]
+  float* sV = sK + kSimtBN * ld;      // [BN][dc]
+  float* sAcc = sV + kSimtBN * dc;    // [BM][dc]
+  float* sP = sAcc + kSimtBM * dc;    // [BM][BN]
   float* sM = sP + kSimtBM * kSimtBN;
   float* sL = sM + kSimtBM;
   float* sC = sL + kSimtBM;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * kSimtBM;
-  const int bh = blockIdx.y;
+  const int n_qt = (p.sq + kSimtBM - 1) / kSimtBM;
+  const int n_bh = gridDim.x / n_qt;
+  const int idx = blockIdx.x;
+  const int rank = p.causal ? idx / n_bh : idx % n_qt;
+  const int bh = p.causal ? idx % n_bh : idx / n_qt;
+  const int m0 = (n_qt - 1 - rank) * kSimtBM;
   const int b = bh / p.h, hh = bh % p.h;
   const int kvh = hh / (p.h / p.hkv);
   int q_off, kv_off;
   read_offsets(p, &q_off, &kv_off);
-  const T* Q = static_cast<const T*>(p.q) + static_cast<size_t>(bh) * p.sq * d;
-  const size_t kv_base = static_cast<size_t>(b * p.hkv + kvh) * p.sk * d;
+  const size_t row_base = static_cast<size_t>(bh) * p.sq;
+  const T* Q = static_cast<const T*>(p.q) + row_base * d;
+  const size_t kv_base = (static_cast<size_t>(b) * p.hkv + kvh) * p.sk * d;
   const T* K = static_cast<const T*>(p.k) + kv_base;
   const T* V = static_cast<const T*>(p.v) + kv_base;
-  const size_t row_base = static_cast<size_t>(bh) * p.sq;
+  const bool q_resident = dk == d;
 
-  for (int e = tid; e < kSimtBM * d; e += kSimtThreads) {
-    const int r = e / d, c = e % d;
-    const bool ok = m0 + r < p.sq;
-    sQ[r * ld + c] = ok ? to_float(Q[static_cast<size_t>(m0 + r) * d + c]) : 0.f;
-    sAcc[e] = ok ? p.acc_in[(row_base + m0 + r) * d + c] : 0.f;
+  auto load_q = [&](int i0, int w) {
+    for (int e = tid; e < kSimtBM * w; e += kSimtThreads) {
+      const int r = e / w, c = e % w;
+      sQ[r * ld + c] = m0 + r < p.sq
+          ? to_float(Q[static_cast<size_t>(m0 + r) * d + i0 + c]) : 0.f;
+    }
+  };
+  if (q_resident) load_q(0, d);
+  for (int e = tid; e < kSimtBM * dc; e += kSimtThreads) {
+    const int r = e / dc, c = e % dc;
+    sAcc[e] = m0 + r < p.sq ? p.acc_in[(row_base + m0 + r) * d + c0 + c]
+                            : 0.f;
   }
   for (int r = tid; r < kSimtBM; r += kSimtThreads) {
     const bool ok = m0 + r < p.sq;
@@ -918,19 +943,37 @@ __global__ void __launch_bounds__(kSimtThreads) flash_simt_kernel(Params p) {
   for (int jt = 0; jt < n_tiles; ++jt) {
     const int k0 = jt * kSimtBN;
     __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < kSimtBN * d; e += kSimtThreads) {
-      const int r = e / d, c = e % d;
-      const bool ok = k0 + r < p.sk;
-      const size_t at = static_cast<size_t>(k0 + r) * d + c;
-      sK[r * ld + c] = ok ? to_float(K[at]) : 0.f;
-      sV[e] = ok ? to_float(V[at]) : 0.f;
+    for (int e = tid; e < kSimtBN * dc; e += kSimtThreads) {
+      const int r = e / dc, c = e % dc;
+      sV[e] = k0 + r < p.sk
+          ? to_float(V[static_cast<size_t>(k0 + r) * d + c0 + c]) : 0.f;
     }
-    __syncthreads();
-    for (int e = tid; e < kSimtBM * kSimtBN; e += kSimtThreads) {
+    float dot[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) dot[u] = 0.f;
+    for (int i0 = 0; i0 < d; i0 += dk) {
+      const int w = d - i0 < dk ? d - i0 : dk;
+      if (i0 > 0) __syncthreads();  // the last chunk's readers are done
+      if (!q_resident) load_q(i0, w);
+      for (int e = tid; e < kSimtBN * w; e += kSimtThreads) {
+        const int r = e / w, c = e % w;
+        sK[r * ld + c] = k0 + r < p.sk
+            ? to_float(K[static_cast<size_t>(k0 + r) * d + i0 + c]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const int e = tid + u * kSimtThreads;
+        const int r = e / kSimtBN, c = e % kSimtBN;
+        for (int i = 0; i < w; ++i) dot[u] += sQ[r * ld + i] * sK[c * ld + i];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int e = tid + u * kSimtThreads;
       const int r = e / kSimtBN, c = e % kSimtBN;
-      float dot = 0.f;
-      for (int i = 0; i < d; ++i) dot += sQ[r * ld + i] * sK[c * ld + i];
-      sP[e] = legal(p, q_off, kv_off, m0 + r, k0 + c) ? dot * p.scale : kNeg;
+      sP[e] = legal(p, q_off, kv_off, m0 + r, k0 + c) ? dot[u] * p.scale
+                                                        : kNeg;
     }
     __syncthreads();
     for (int r = warp; r < kSimtBM; r += kSimtThreads / 32) {
@@ -956,20 +999,21 @@ __global__ void __launch_bounds__(kSimtThreads) flash_simt_kernel(Params p) {
       }
     }
     __syncthreads();
-    for (int e = tid; e < kSimtBM * d; e += kSimtThreads) {
-      const int r = e / d, c = e % d;
+    for (int e = tid; e < kSimtBM * dc; e += kSimtThreads) {
+      const int r = e / dc, c = e % dc;
       float pv = 0.f;
       for (int kk = 0; kk < kSimtBN; ++kk) {
-        pv += sP[r * kSimtBN + kk] * sV[kk * d + c];
+        pv += sP[r * kSimtBN + kk] * sV[kk * dc + c];
       }
       sAcc[e] = sAcc[e] * sC[r] + pv;
     }
   }
   __syncthreads();
-  for (int e = tid; e < kSimtBM * d; e += kSimtThreads) {
-    const int r = e / d;
-    if (m0 + r < p.sq) p.acc_out[(row_base + m0) * d + e] = sAcc[e];
+  for (int e = tid; e < kSimtBM * dc; e += kSimtThreads) {
+    const int r = e / dc, c = e % dc;
+    if (m0 + r < p.sq) p.acc_out[(row_base + m0 + r) * d + c0 + c] = sAcc[e];
   }
+  if (c0 != 0) return;
   for (int r = tid; r < kSimtBM; r += kSimtThreads) {
     if (m0 + r < p.sq) {
       p.m_out[row_base + m0 + r] = sM[r];
@@ -1047,16 +1091,52 @@ cudaError_t launch_ws(const Params& p, int b, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// How flash_simt_kernel splits width d under `optin` bytes of shared
+// memory a block: dk columns of the scores at a time and dc columns of acc
+// a launch. Whole d in one launch while it fits (d <= 599 on an H100);
+// else the scores over all of d at once where a 32-column acc chunk fits
+// beside them (d <= 1166), else 128 columns at a time, and acc in the
+// fewest launches of equal width that fit.
+struct SimtSplit {
+  int dk, dc;
+};
+
+SimtSplit simt_split(int d, size_t optin) {
+  if (simt_smem_bytes(d, d) <= optin) return {d, d};
+  const int dk = simt_smem_bytes(d, 32) <= optin ? d : 128;
+  const size_t per_col = sizeof(float) * (kSimtBN + kSimtBM);
+  const int dc_max =
+      static_cast<int>((optin - simt_smem_bytes(dk, 0)) / per_col);
+  const int launches = (d + dc_max - 1) / dc_max;
+  return {dk, (d + launches - 1) / launches};
+}
+
+size_t smem_optin() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess) {
+    return 48 * 1024;  // what every CUDA device grants without opting in
+  }
+  return static_cast<size_t>(bytes);
+}
+
 template <typename T>
-cudaError_t launch_simt(const Params& p, int bh, cudaStream_t stream) {
-  const size_t smem = simt_smem_bytes(p.d);
+cudaError_t launch_simt(Params p, int n_blocks, cudaStream_t stream) {
+  const SimtSplit split = simt_split(p.d, smem_optin());
+  const size_t smem = simt_smem_bytes(split.dk, split.dc);
   cudaError_t err = cudaFuncSetAttribute(
       flash_simt_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.sq + kSimtBM - 1) / kSimtBM, bh);
-  flash_simt_kernel<T><<<grid, kSimtThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  p.dk = split.dk;
+  for (p.c0 = 0; p.c0 < p.d; p.c0 += split.dc) {
+    p.dc = p.d - p.c0 < split.dc ? p.d - p.c0 : split.dc;
+    flash_simt_kernel<T><<<n_blocks, kSimtThreads, smem, stream>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <int D>
@@ -1084,14 +1164,14 @@ enum Route { kRouteSimt = 0, kRouteWs = 1, kRouteTf32x3 = 2 };
 // (brpc_flash_tile_k and brpc_flash_route read it). bf16 at d 64 or 128
 // with 16-byte aligned q, k, v and 8-byte aligned accumulators: the
 // warp-specialised kernel. fp32 with d % 4 == 0 (16-byte rows for
-// cp.async) and the same alignment: the 3xTF32 kernel. Everything else:
-// the SIMT kernel.
+// cp.async), d <= 256 and the same alignment: the 3xTF32 kernel.
+// Everything else, any d: the SIMT kernel.
 Route route(const void* q, const void* k, const void* v, const float* acc_in,
             const float* acc_out, int d, int is_bf16) {
   const bool fits = aligned(q, 16) && aligned(k, 16) && aligned(v, 16) &&
                     aligned(acc_in, 8) && aligned(acc_out, 8);
   if (is_bf16) return fits && (d == 64 || d == 128) ? kRouteWs : kRouteSimt;
-  return fits && d % 4 == 0 ? kRouteTf32x3 : kRouteSimt;
+  return fits && d % 4 == 0 && d <= 256 ? kRouteTf32x3 : kRouteSimt;
 }
 
 }  // namespace
@@ -1138,9 +1218,18 @@ extern "C" int brpc_flash_tf32x3_smem(int d) {
   }
 }
 
+// Launches of flash_simt_kernel a fold at width d takes on this device:
+// 1 while a block's shared memory holds all of d, else one a column chunk
+// of acc.
+extern "C" int brpc_flash_simt_launches(int d) {
+  const int dc = simt_split(d, smem_optin()).dc;
+  return (d + dc - 1) / dc;
+}
+
 // q [b,h,sq,d], k and v [b,hkv,sk,d] (bf16 when is_bf16, else fp32), the
 // fp32 carries m, l [b,h,sq] and acc [b,h,sq,d], all contiguous; fresh
-// m_out, l_out, acc_out of the same shapes. Returns cudaGetLastError().
+// m_out, l_out, acc_out of the same shapes. Any d and b*h up to the grid's
+// 2^31 - 1 blocks of 16 q rows. Returns cudaGetLastError().
 extern "C" int brpc_flash_carry(const void* q, const void* k, const void* v,
                                 const float* m_in, const float* l_in,
                                 const float* acc_in, float* m_out,
@@ -1150,7 +1239,9 @@ extern "C" int brpc_flash_carry(const void* q, const void* k, const void* v,
                                 int is_bf16, int causal, float scale,
                                 cudaStream_t stream) {
   if (b <= 0 || h <= 0 || sq <= 0) return 0;
-  if (hkv <= 0 || h % hkv != 0 || d <= 0 || d > 256 || b * h > 65535) {
+  const long long blocks = static_cast<long long>(b) * h *
+                           ((sq + kSimtBM - 1) / kSimtBM);
+  if (hkv <= 0 || h % hkv != 0 || d <= 0 || blocks > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p{q,     k,      v,      m_in,   l_in, acc_in, m_out,  l_out,
@@ -1173,8 +1264,10 @@ extern "C" int brpc_flash_carry(const void* q, const void* k, const void* v,
       }
       break;
     default:
-      err = is_bf16 ? launch_simt<__nv_bfloat16>(p, b * h, stream)
-                    : launch_simt<float>(p, b * h, stream);
+      err = is_bf16 ? launch_simt<__nv_bfloat16>(p, static_cast<int>(blocks),
+                                                 stream)
+                    : launch_simt<float>(p, static_cast<int>(blocks),
+                                         stream);
   }
   return static_cast<int>(err);
 }

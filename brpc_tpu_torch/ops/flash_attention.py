@@ -71,6 +71,14 @@ def kernel_name(q, k, v, acc) -> str:
     return KERNELS[_ask("brpc_flash_route", q, k, v, acc)]
 
 
+def simt_launches(d: int) -> int:
+    """Launches of ``flash_simt_kernel`` one fold at width d takes on the
+    current card (``brpc_flash_simt_launches``): 1 while a block's shared
+    memory holds Q, K, V and acc at d, else one a column chunk of acc,
+    each chunk recomputing the scores."""
+    return int(_build.kernel("brpc_flash_simt_launches", [ctypes.c_int])(d))
+
+
 def _pick_block(seq: int, want: int) -> int:
     b = min(want, seq)
     while seq % b != 0:
@@ -178,10 +186,12 @@ def flash_attention_carry(q, k, v, m, l, acc, offsets, *,
     CPU tensors take ``flash_carry_reference`` with ``block_q``/``block_k``
     as in the JAX package. On CUDA the kernel picks its own tiles
     (``kernel_tile_k``: 128 keys on the bf16 tensor-core path, 64 on the
-    fp32 one, which runs 3xTF32 and takes d % 4 == 0 (32 keys at d > 128),
-    32 on the SIMT path, which takes the rest) and takes bf16 or fp32,
-    contiguous, d <= 256; it raises TypeError or ValueError on anything
-    else.
+    fp32 one, which runs 3xTF32 and takes d % 4 == 0 up to d = 256 (32
+    keys at d > 128), 32 on the SIMT path, which takes the rest, at any d
+    and b*h: past the width a block's shared memory holds, one fold is
+    ``simt_launches(d)`` launches over column chunks of acc). It takes
+    bf16 or fp32, contiguous, and raises TypeError or ValueError on
+    anything else.
     """
     _check(q, k, v, m, l, acc, offsets)
     tensors = (q, k, v, m, l, acc)
@@ -205,11 +215,6 @@ def flash_attention_carry(q, k, v, m, l, acc, offsets, *,
                             "the carries are torch.float32")
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    if d > 256:
-        raise ValueError(f"flash_attention_carry: d={d}; the kernel takes "
-                         "d <= 256")
-    if b * h > 65535:
-        raise ValueError(f"flash_attention_carry: b*h={b * h} > 65535")
     for t, what in zip(tensors, ("q", "k", "v", "m", "l", "acc")):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention_carry: {what} is not "

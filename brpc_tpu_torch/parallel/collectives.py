@@ -83,44 +83,68 @@ def _p2p_ops(send, recv, nxt, prv, group) -> list:
     return ops
 
 
-def ring_shift_start(tensors, group) -> RingShift:
+class HostStage:
+    """What a staged shift (``stages_through_host``) copies through: a
+    side stream and one pinned host buffer a tensor each way, shaped like
+    ``like``. Made once, it serves shift after shift of tensors of those
+    shapes: a shift's copy out waits on the side stream behind the last
+    shift's copy back, and the host waits for the copy out before the
+    receive is posted."""
+
+    def __init__(self, like):
+        self.side = torch.cuda.Stream(like[0].device)
+        self.send = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in like]
+        self.recv = [torch.empty_like(h, pin_memory=True) for h in self.send]
+
+
+def ring_shift_start(tensors, group, *, out=None,
+                     stage: HostStage | None = None) -> RingShift:
     """Each rank of ``group`` sends its tensors to the next rank and
     receives the previous rank's (block i moves to (i + 1) % n), all in one
     ``batch_isend_irecv``, and returns without waiting for the transfer;
-    ``wait()`` on the handle gives fresh tensors. Work the caller enqueues
-    before ``wait()`` runs beside the transfer. CUDA tensors on a gloo
-    group (``stages_through_host``) are copied to pinned host buffers on a
-    side stream once the caller's stream reaches the shift (the host waits
-    for that copy), the host buffers are exchanged, and ``wait()`` copies
-    the received ones back on the side stream."""
+    ``wait()`` on the handle gives the received tensors: ``out`` when
+    given (contiguous, shaped like ``tensors``), else fresh ones. Work the
+    caller enqueues before ``wait()`` runs beside the transfer. On NCCL the
+    transfer is ordered after the work already on the caller's stream
+    (ProcessGroupNCCL makes its stream wait on the caller's at issue), so
+    ``out`` may be a buffer that earlier work on that stream still reads.
+    CUDA tensors on a gloo group (``stages_through_host``) are copied to
+    the pinned buffers of ``stage`` (fresh ones if None) on its side stream
+    once the caller's stream reaches the shift (the host waits for that
+    copy), the host buffers are exchanged, and ``wait()`` copies the
+    received ones back on the side stream."""
     n = dist.get_world_size(group)
     tensors = [t.contiguous() for t in tensors]
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"ring_shift_start: tensors on {devices}")
     SHIFTS.add()
+    out = ([torch.empty_like(t) for t in tensors] if out is None
+           else list(out))
     if n == 1:
-        return RingShift([t.clone() for t in tensors], tensors)
+        for o, t in zip(out, tensors):
+            o.copy_(t)
+        return RingShift(out, tensors)
     me = dist.get_rank(group)
     nxt = dist.get_global_rank(group, (me + 1) % n)
     prv = dist.get_global_rank(group, (me - 1) % n)
-    out = [torch.empty_like(t) for t in tensors]
     dev = tensors[0].device
     if not stages_through_host(dist.get_backend(group), dev):
         works = dist.batch_isend_irecv(_p2p_ops(tensors, out, nxt, prv,
                                                 group))
         return RingShift(out, tensors, works)
-    side = torch.cuda.Stream(dev)
-    send = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            for t in tensors]
-    recv = [torch.empty_like(h, pin_memory=True) for h in send]
+    stage = HostStage(tensors) if stage is None else stage
+    side = stage.side
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
-        for h, t in zip(send, tensors):
+        for h, t in zip(stage.send, tensors):
             h.copy_(t, non_blocking=True)
     side.synchronize()
-    works = dist.batch_isend_irecv(_p2p_ops(send, recv, nxt, prv, group))
-    return RingShift(out, tensors + send, works, copy_back=(side, recv))
+    works = dist.batch_isend_irecv(_p2p_ops(stage.send, stage.recv, nxt,
+                                            prv, group))
+    return RingShift(out, tensors + stage.send, works,
+                     copy_back=(side, stage.recv))
 
 
 def ring_shift(tensors, group) -> list:

@@ -11,8 +11,10 @@ checkout. Phases, each fatal on failure:
   2. kernels vs plain PyTorch, on the card: K1 and K2 at every distinct
      shape of the parameter-server path (GPT-2 small) plus a ragged and a
      1-D one, bit-identical; K3 (flash carry) at one Llama 3 8B attention
-     layer (bf16, and fp32 on its CUDA-core path) and at bench.py's flash
-     point plus edge cases, within stated tolerances; times at the
+     layer (bf16, and fp32 on its tensor-core path) and at bench.py's
+     flash point plus edge cases, and at the shapes it once refused (b*h
+     65536 on each route; d 320 and 640, the latter in two launches over
+     column chunks), within stated tolerances; times at the
      largest shapes beside the bound and a
      library call where one computes the same function (K2 int8's,
      ``codes.view(nb, block) * scale.view(nb, 1)``, held bit for bit);
@@ -28,8 +30,9 @@ checkout. Phases, each fatal on failure:
      a 4-shard ring replay of the Llama layer through K3 (16 launches),
      equal to one-shot flash attention; the port's ring_attention over 4
      spawned ranks sharing the card over gloo at the same layer, each
-     rank's output equal to its replay bit for bit, 3 shifts a rank and
-     16 K3 launches over the ranks, with each rank's ring, its hops alone
+     rank's output equal to its replay bit for bit, 3 shifts a rank (each
+     one send and one receive of the packed K|V block) and 16 K3
+     launches over the ranks, with each rank's ring, its hops alone
      and its folds alone timed; dryrun_multichip(1) on a one-rank NCCL
      group;
   5. the parameter-server fleet at the same GPT-2 small parameter set,
@@ -586,13 +589,15 @@ def _flash_timing(q, k, v, causal, rate, flops_rate, reps=10,
     """kernel / plain / SDPA ms at a fresh-carry full pass, and the bound:
     4*d FLOP per (query, legal key) pair (q.k and p.v) at ``flops_rate``
     (the card's peak for the input type, per FLOP of the function), or the
-    bytes (q, k, v and the carries in; carries out)."""
+    bytes (q, the k and v rows some query can see, and the carries in;
+    carries out)."""
     import torch
     import torch.nn.functional as F
 
     from brpc_tpu_torch.ops import flash_attention as fa
 
     b, h, s, d = q.shape
+    sk = k.shape[2]
     m, l, acc = fa.flash_init(b, h, s, d, device=q.device)
     ms = cuda_ms(lambda: fa.flash_attention_carry(q, k, v, m, l, acc, (0, 0),
                                                   causal=causal),
@@ -605,10 +610,14 @@ def _flash_timing(q, k, v, causal, rate, flops_rate, reps=10,
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal, enable_gqa=k.shape[1] != h),
         reps=reps, inner=inner)
-    pairs = s * (s + 1) // 2 if causal else s * s
+    diag = min(s, sk)  # causal from (0, 0): row i attends keys 0..i
+    pairs = (diag * (diag + 1) // 2 + max(0, s - sk) * sk if causal
+             else s * sk)
     flops = 4.0 * b * h * d * pairs
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) + 2 * sum(
-        t.numel() * 4 for t in (m, l, acc))
+    live = diag if causal else sk  # keys past the last row's are not read
+    nbytes = (q.numel() * q.element_size()
+              + sum(t[:, :, :live].numel() * t.element_size() for t in (k, v))
+              + 2 * sum(t.numel() * 4 for t in (m, l, acc)))
     t_ops, t_bytes = flops / flops_rate * 1e3, nbytes / rate * 1e3
     return {"ms": ms, "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -720,6 +729,42 @@ def flash_vs_plain(seed: int, rate: float, flops_rate: float,
         errs.append(_flash_case(label, q, k, v,
                                 fa.flash_init(b, h, s, d, device="cuda"),
                                 (24, 0), True))
+    # Shapes the reference folds that K3 once refused: b*h = 65536 (one
+    # q tile a head; the grid is 1-D on every route) and d past 256 on
+    # flash_simt_kernel (at 640 its tiles outgrow a block's shared
+    # memory: two launches over column chunks of acc), each held against
+    # its plain version and timed beside it and SDPA; bound as the rows
+    # above (fp32 at three TF32 products a product).
+    c4 = []
+    for label, shape, sk, dtype, kernel, offsets in (
+            ("b*h 65536", (2048, 32, 8, 64, 64), 128, bf16,
+             "flash_ws_kernel", (64, 0)),
+            ("b*h 65536", (2048, 32, 8, 64, 64), 128, f32, tc, (64, 0)),
+            ("b*h 65536", (2048, 32, 8, 64, 48), 128, bf16, simt, (64, 0)),
+            ("d=320", (1, 8, 2, 1024, 320), 1024, bf16, simt, (128, 0)),
+            ("d=320", (1, 8, 2, 1024, 320), 1024, f32, simt, (128, 0)),
+            ("d=640", (1, 8, 2, 1024, 640), 1024, bf16, simt, (128, 0)),
+            ("d=640", (1, 8, 2, 1024, 640), 1024, f32, simt, (128, 0))):
+        b, h, hkv, s, d = shape
+        q, k, v = _qkv(b, h, hkv, s, d, dtype, seed + 7, sk=sk)
+        err = _flash_case(f"{label} {dtype}", q, k, v,
+                          fa.flash_init(b, h, s, d, device="cuda"), offsets,
+                          True, kernel=kernel)
+        errs.append(err)
+        t = _flash_timing(q, k, v, True, rate, flops_rate if dtype == bf16
+                          else tf32_rate / 3, reps=5, inner=2)
+        chunks = fa.simt_launches(d) if kernel == simt else 1
+        log(f"K3 {label} {dtype} ({kernel}, {chunks} launch(es) a fold): "
+            f"kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+            f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) "
+            f"library_ms(SDPA)={t['library_ms']:.4f}")
+        c4.append({"shape": f"b{b} h{h} hkv{hkv} sq{s} sk{sk} d{d} "
+                            f"{dtype} causal, offsets {offsets}",
+                   "kernel": kernel, "launches_a_fold": chunks,
+                   "max_abs_err": err,
+                   **{key: t[key] for key in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")}})
+        del q, k, v
     main, second = timing["Llama 3 8B layer"], timing["bench.py flash point"]
     f32_t = timing["Llama 3 8B layer, fp32"]
     for label, t in timing.items():
@@ -758,7 +803,8 @@ def flash_vs_plain(seed: int, rate: float, flops_rate: float,
                           "max_abs_err": f32_err,
                           **{key: f32_t[key] for key in (
                               "ms", "plain_ms", "bound_ms", "bound_by",
-                              "fma_bound_ms", "library_ms")}}}
+                              "fma_bound_ms", "library_ms")}},
+            "c4_shapes": c4}
 
 
 def _flash_build_report() -> str:
@@ -1106,7 +1152,12 @@ def _ring_rank(seed: int) -> dict:
     group = mesh.get_group("shard")
     ring = ra.ring_attention(mesh, causal=True)
     k3, shifts = fa.LAUNCHES.value, col.SHIFTS.value
-    out = ring(q, k, v)
+    batch, p2p = dist.batch_isend_irecv, []
+    dist.batch_isend_irecv = lambda ops: p2p.append(len(ops)) or batch(ops)
+    try:
+        out = ring(q, k, v)
+    finally:
+        dist.batch_isend_irecv = batch
     torch.cuda.synchronize()
     k3, shifts = fa.LAUNCHES.value - k3, col.SHIFTS.value - shifts
     blocks = [(k, v)]
@@ -1119,6 +1170,7 @@ def _ring_rank(seed: int) -> dict:
             kb, vb = col.ring_shift([kb, vb], group)
 
     return {"rank": rank, "out": out.cpu(), "k3": k3, "shifts": shifts,
+            "p2p": p2p,
             "ring_ms": _rank_ms(lambda: ring(q, k, v)),
             "hops_ms": _rank_ms(hops), "folds_ms": _rank_ms(
                 lambda: ra.ring_replay(q, blocks, rank, n, causal=True))}
@@ -1222,9 +1274,10 @@ def tensor_service_paths(seed: int, smi: str) -> dict:
             diff = (r["out"].float() - replays[r["rank"]].float()).abs()
             fail(f"ring_attention rank {r['rank']} != its ring replay: max "
                  f"err {diff.max().item()}")
-        if r["shifts"] != n - 1:
+        if r["shifts"] != n - 1 or r["p2p"] != [2] * (n - 1):
             fail(f"ring_attention rank {r['rank']} made {r['shifts']} "
-                 f"shifts, not {n - 1}")
+                 f"shifts of {r['p2p']} point-to-point ops, not {n - 1} "
+                 "of 2 (one send, one receive of the packed K|V block)")
         log(f"  rank {r['rank']}: ring {r['ring_ms']:.4f} ms, its {n - 1} "
             f"hops alone {r['hops_ms']:.4f} ms, its {n} folds alone "
             f"{r['folds_ms']:.4f} ms (CUDA events, medians of 10; {smi})")
@@ -1241,7 +1294,8 @@ def tensor_service_paths(seed: int, smi: str) -> dict:
     # FLASH_TOL on acc/l as above, plus the output's own bf16 rounding.
     excess = ((whole - ref).abs() - 2.0 ** -8 * ref.abs()).max().item()
     log(f"  ring_attention == its replay on every rank (bit for bit), "
-        f"{n - 1} shifts a rank, K3 {k3} over the ranks; == one-shot "
+        f"{n - 1} shifts a rank of one send and one receive each, K3 "
+        f"{k3} over the ranks; == one-shot "
         f"flash_attention: max err beyond one bf16 step {excess:.3g}")
     if not excess <= FLASH_TOL["bf16"]:
         fail(f"ring_attention over {n} ranks != one-shot flash attention "

@@ -522,10 +522,57 @@ def test_flash_carry_kernel_refuses_what_it_does_not_take(cuda):
         fa.flash_attention_carry(x, x[:, :1].expand(1, 3, 8, 16).contiguous(),
                                  x[:, :1].expand(1, 3, 8, 16).contiguous(),
                                  m, l, acc, (0, 0))
+    # d > 256 is taken (on flash_simt_kernel), not refused.
     wide = torch.zeros(1, 1, 8, 264, device=cuda)
     wm, wl, wacc = fa.flash_init(1, 1, 8, 264, device=cuda)
-    with pytest.raises(ValueError, match="d <= 256"):
-        fa.flash_attention_carry(wide, wide, wide, wm, wl, wacc, (0, 0))
+    assert fa.kernel_name(wide, wide, wide, wacc) == "flash_simt_kernel"
+    fa.flash_attention_carry(wide, wide, wide, wm, wl, wacc, (0, 0))
+    torch.cuda.synchronize()
+
+
+# Shapes the reference folds that the kernel once refused: b*h past
+# 65535 (one q tile a head: the grid is 1-D on every route) and d past
+# 256 (flash_simt_kernel; at 640 its tiles outgrow a block's shared
+# memory, so a fold is two launches over column chunks of acc).
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 64, "flash_ws_kernel"),
+    (torch.float32, 64, "flash_tf32x3_kernel"),
+    (torch.bfloat16, 48, "flash_simt_kernel")])
+def test_flash_carry_kernel_at_b_times_h_65536_matches_plain(cuda, dtype, d,
+                                                            kernel):
+    b, h, hkv, sq, sk = 2048, 32, 8, 64, 128
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn(b, h, sq, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(b, hkv, sk, d, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    carry = fa.flash_init(b, h, sq, d, device=cuda)
+    assert fa.kernel_name(q, k, v, carry[2]) == kernel
+    got = fa.flash_attention_carry(q, k, v, *carry, (64, 0), causal=True)
+    torch.cuda.synchronize()
+    _assert_matches_plain(q, k, v, carry, (64, 0), True, got)
+
+
+# d 1280 and 1300: the scores no longer fit beside an acc chunk, so they
+# are summed over d in 128-column chunks with Q reloaded each chunk (at
+# 1300 the last chunk is 20 columns wide).
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,launches", [(320, 1), (640, 2), (1280, 2),
+                                        (1300, 2)])
+def test_flash_carry_kernel_past_d_256_matches_plain(cuda, dtype, d,
+                                                     launches):
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn(1, 4, 96, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(1, 2, 160, d, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    m, l, acc = fa.flash_carry_reference(  # a carry that is not fresh
+        q, k, v, *fa.flash_init(1, 4, 96, d, device=cuda), (400, 0),
+        causal=True, block_k=32, ragged_tail=True)
+    assert fa.kernel_name(q, k, v, acc) == "flash_simt_kernel"
+    assert fa.simt_launches(d) == launches
+    off = torch.tensor((40, 0), dtype=torch.int32, device=cuda)
+    got = fa.flash_attention_carry(q, k, v, m, l, acc, off, causal=True)
+    torch.cuda.synchronize()
+    _assert_matches_plain(q, k, v, (m, l, acc), (40, 0), True, got)
 
 
 # The ring over NCCL, one rank per card: each rank folds its resident
@@ -604,6 +651,101 @@ def test_ring_attention_shares_one_card_over_gloo(cuda):
     results = run_ranks(4, _ring_card_rank, (SHARED_RING_SHAPE, False),
                         device_type="cuda", share_card=True, timeout_s=300)
     _check_ring_ranks(results, SHARED_RING_SHAPE)
+
+
+# One ring closure called again and again with new inputs: on NCCL the
+# first call runs eagerly, the second captures the ring as a CUDA graph and
+# replays it, the rest replay; each call equals the eager schedule and the
+# replay of its folds bit for bit, and counts n K3 launches and n-1 shifts.
+# A call at another shape then drops the captured ring and runs eagerly.
+# The Llama layer in bf16, and a small GQA shape in fp32 (3xTF32).
+GRAPH_RING_CASES = [(RING_SHAPE, torch.bfloat16),
+                    (dict(b=2, h=8, hkv=2, s=1024, d=64), torch.float32)]
+GRAPH_RING_CALLS = 5
+
+
+def _graph_ring_rank(cases, calls):
+    """Per case and call: (== eager, == replay, K3 launches, shifts,
+    K3 launches on the fp32 tensor-core kernel); whether the closure
+    holds a captured ring after the calls; and, after one more call at
+    half the rows, whether that call == eager and the ring was dropped."""
+    import torch.distributed as dist
+
+    from brpc_tpu_torch.ops import ring_attention as ra
+    from brpc_tpu_torch.parallel import collectives as col
+    from brpc_tpu_torch.parallel.mesh import make_mesh
+
+    rank, n = dist.get_rank(), dist.get_world_size()
+    mesh = make_mesh(client=1, shard=n)
+    group = mesh.get_group("shard")
+    out = []
+    for shape, dtype in cases:
+        ring = ra.ring_attention(mesh, causal=True)
+        rows = []
+        for call in range(calls):
+            gen = torch.Generator(device="cuda").manual_seed(100 + call)
+            full = [torch.randn(shape["b"], heads, shape["s"], shape["d"],
+                                generator=gen, device="cuda").to(dtype)
+                    for heads in (shape["h"], shape["hkv"], shape["hkv"])]
+            q, k, v = (t.chunk(n, dim=2)[rank].contiguous() for t in full)
+            before = (fa.LAUNCHES.value, col.SHIFTS.value,
+                      fa.LAUNCHES_TF32X3.value)
+            got = ring(q, k, v)
+            torch.cuda.synchronize()
+            counts = (fa.LAUNCHES.value - before[0],
+                      col.SHIFTS.value - before[1],
+                      fa.LAUNCHES_TF32X3.value - before[2])
+            eager = ra._ring_eager(q, k, v, group, rank, n, causal=True)
+            blocks = [tuple(t.chunk(n, dim=2)[(rank - hop) % n].contiguous()
+                            for t in full[1:]) for hop in range(n)]
+            replay = ra.ring_replay(q, blocks, rank, n, causal=True)
+            rows.append((torch.equal(got, eager), torch.equal(got, replay))
+                        + counts)
+        captured = ring.cache.graph is not None
+        q2, k2, v2 = (t[:, :, :t.shape[2] // 2].contiguous()
+                      for t in (q, k, v))
+        other = torch.equal(ring(q2, k2, v2), ra._ring_eager(
+            q2, k2, v2, group, rank, n, causal=True))
+        out.append((rows, captured, other, ring.cache.graph is None))
+        del ring
+        torch.cuda.synchronize()
+    return out
+
+
+def _check_graph_ring(results, cases, captured):
+    n = len(results)
+    for rank, res in enumerate(results):
+        for (shape, dtype), (rows, *rest) in zip(cases, res):
+            tc = n if dtype == torch.float32 else 0
+            assert rows == [(True, True, n, n - 1, tc)] * len(rows), (
+                rank, dtype, rows)
+            assert rest == [captured, True, True], (rank, dtype, rest)
+
+
+def test_ring_graph_over_nccl_equals_eager_and_replay(cuda):
+    if torch.cuda.device_count() < RING_CARDS:
+        pytest.skip(f"needs {RING_CARDS} CUDA cards")
+    from brpc_tpu_torch.ops import _build
+    from brpc_tpu_torch.parallel.launch import run_ranks
+
+    _build.load()
+    results = run_ranks(RING_CARDS, _graph_ring_rank,
+                        (GRAPH_RING_CASES, GRAPH_RING_CALLS),
+                        device_type="cuda", timeout_s=300)
+    _check_graph_ring(results, GRAPH_RING_CASES, captured=True)
+
+
+def test_ring_shares_one_card_over_gloo_call_after_call(cuda):
+    # gloo (ranks sharing the card) runs the eager packed schedule every
+    # call: nothing is captured.
+    from brpc_tpu_torch.ops import _build
+    from brpc_tpu_torch.parallel.launch import run_ranks
+
+    _build.load()
+    cases = [(SHARED_RING_SHAPE, torch.bfloat16)]
+    results = run_ranks(4, _graph_ring_rank, (cases, 3), device_type="cuda",
+                        share_card=True, timeout_s=300)
+    _check_graph_ring(results, cases, captured=False)
 
 
 # ---------------------------------------------------------------------------

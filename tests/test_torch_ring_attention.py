@@ -15,6 +15,11 @@ the fixture that runs the JAX side) computes, from the same numpy inputs:
   folds and waits (``ring_shift_start`` and ``flash_attention_carry``
   wrapped in the ranks), and each rank's output against a serialized
   replay of the same folds (``hop_offsets``, in order), bit for bit;
+- the packed hop: each shift is one send and one receive of the packed
+  K|V buffer (``dist.batch_isend_irecv`` wrapped in the ranks), received
+  into two buffers made once a call and used in turn, at shapes whose
+  block is no multiple of the packing's 256-byte boundary; repeated calls
+  of one ring each make n-1 shifts and n folds and equal their replays;
 - a ``ring_shift_start`` handle holds the tensor it sends until
   ``wait()``;
 - ``make_sharded_train_step`` on a 2x2 mesh, with the reference's
@@ -45,7 +50,13 @@ RING_CASES = {
     "gqa_causal": ((1, 8, 64, 32), 2, True, 16, 13, 4),
     "single_head_3d": ((2, 64, 16), None, False, 1024, 5, 2),
     "data_plane_3d": ((2, 32, 16), None, False, 1024, 7, 4),
+    # s/n * d = 5 * 7 elements a head: V's half of the packed buffer
+    # starts past padding.
+    "gqa_odd": ((1, 4, 20, 7), 2, False, 1024, 17, 4),
+    "gqa_odd_causal": ((1, 4, 20, 7), 2, True, 1024, 17, 4),
 }
+REPEAT_CASE = "gqa_odd_causal"
+REPEAT_SCALES = (1.0, 0.5, 2.0)
 STEP_DIMS = dict(din=16, dh=32, dout=8, batch=16)
 FIELDS = ("w1", "b1", "w2", "b2", "m_w1", "m_w2", "stats")
 
@@ -113,18 +124,38 @@ def _rank_body(inp):
     out["a2a"] = col.all_to_all_reshard(ring)(
         t(chunk(inp["a2a"], N, rank))).numpy()
 
-    for name, (mesh, idx, n, causal, block) in _ring_runs(
-            rank, mesh22, mesh14).items():
+    runs = _ring_runs(rank, mesh22, mesh14)
+    for name, (mesh, idx, n, causal, block) in runs.items():
         dim = 1 if inp[name][0].ndim == 3 else 2
         q, k, v = (t(chunk(a, n, idx, dim)) for a in inp[name])
         shifts = col.SHIFTS.value
-        with _recorded() as log:
+        with _recorded() as log, _p2p_recorded() as p2p:
             out[name] = ring_attention(mesh, causal=causal, block_q=block,
                                        block_k=block)(q, k, v).numpy()
         out["order_" + name] = log
+        out["p2p_" + name] = p2p
         out["shifts_" + name] = col.SHIFTS.value - shifts
         out["replay_" + name] = _serial_replay(
             *(t(a) for a in inp[name]), idx, n, causal, block).numpy()
+
+    from brpc_tpu_torch.ops import flash_attention as fa
+
+    mesh, idx, n, causal, block = runs[REPEAT_CASE]
+    attend = ring_attention(mesh, causal=causal, block_q=block,
+                            block_k=block)
+    out["repeat"] = []
+    for scale in REPEAT_SCALES:  # one closure, new inputs each call
+        full = [t(a * np.float32(scale)) for a in inp[REPEAT_CASE]]
+        shifts, k3 = col.SHIFTS.value, fa.LAUNCHES.value
+        with _recorded() as log:
+            got = attend(*(x.chunk(n, dim=2)[idx].contiguous()
+                           for x in full))
+        out["repeat"].append({
+            "shifts": col.SHIFTS.value - shifts,
+            "k3": fa.LAUNCHES.value - k3,
+            "folds": sum(isinstance(e, tuple) for e in log),
+            "replayed": torch.equal(got, _serial_replay(
+                *full, idx, n, causal, block))})
 
     import gc
     import weakref
@@ -176,9 +207,9 @@ class _recorded:
         self.saved = (ra.ring_shift_start, ra.flash_attention_carry)
         start, carry = self.saved
 
-        def shift(tensors, group):
+        def shift(tensors, group, **kw):
             log.append("shift")
-            handle = start(tensors, group)
+            handle = start(tensors, group, **kw)
             wait = handle.wait
             handle.wait = lambda: log.append("wait") or wait()
             return handle
@@ -192,6 +223,30 @@ class _recorded:
 
     def __exit__(self, *exc):
         self.ra.ring_shift_start, self.ra.flash_attention_carry = self.saved
+
+
+class _p2p_recorded:
+    """Wraps ``torch.distributed.batch_isend_irecv`` for the scope; the log
+    holds, for each batch, (op, peer, data_ptr, numel) of each of its
+    point-to-point ops."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.dist, log = dist, []
+        self.saved = dist.batch_isend_irecv
+        batch = self.saved
+
+        def record(ops):
+            log.append([(op.op.__name__, op.peer, op.tensor.data_ptr(),
+                         op.tensor.numel()) for op in ops])
+            return batch(ops)
+
+        dist.batch_isend_irecv = record
+        return log
+
+    def __exit__(self, *exc):
+        self.dist.batch_isend_irecv = self.saved
 
 
 def _serial_replay(q, k, v, idx, n, causal, block):
@@ -387,6 +442,82 @@ def test_ring_attention_equals_its_serialized_replay_bit_for_bit(runs, name):
     _inp, port, _jax = runs
     for res in port:
         np.testing.assert_array_equal(res[name], res["replay_" + name])
+
+
+def _packed_numel(kv_shard_shape) -> int:
+    """Elements of a packed fp32 K|V buffer of one kv block: K's and V's
+    each rounded up to 64 (256 bytes)."""
+    numel = int(np.prod(kv_shard_shape))
+    return 2 * -(-numel // 64) * 64
+
+
+def _kv_shard_shape(name, n):
+    shape, hkv, _c, _b, _s, _n = (RING_CASES[name] if name in RING_CASES
+                                  else ((1, 32, 8), None, 0, 0, 0, N))
+    if hkv is None:  # 3-D: [b, s, d] -> one head
+        return (shape[0], 1, shape[1] // n, shape[2])
+    return (shape[0], hkv, shape[2] // n, shape[3])
+
+
+@pytest.mark.parametrize("name", sorted(RING_CASES) + ["extreme"])
+def test_ring_hop_is_one_send_and_one_receive_of_packed_kv(runs, name):
+    _inp, port, _jax = runs
+    n = RING_CASES[name][-1] if name in RING_CASES else N
+    numel = _packed_numel(_kv_shard_shape(name, n))
+    for rank, res in enumerate(port):
+        batches = res["p2p_" + name]
+        assert len(batches) == n - 1, (rank, batches)
+        idx = rank % n
+        # The ranks of a ring: all four on mesh14; on mesh22 the pair with
+        # this rank's client index.
+        ring = list(range(N)) if n == N else [rank - idx, rank - idx + 1]
+        for ops in batches:
+            assert [(op, peer, size) for op, peer, _p, size in ops] == [
+                ("isend", ring[(idx + 1) % n], numel),
+                ("irecv", ring[(idx - 1) % n], numel)], (rank, ops)
+
+
+@pytest.mark.parametrize("name", sorted(RING_CASES) + ["extreme"])
+def test_ring_receives_into_two_buffers_made_once_a_call(runs, name):
+    _inp, port, _jax = runs
+    for rank, res in enumerate(port):
+        batches = res["p2p_" + name]
+        sends = [ops[0][2] for ops in batches]
+        recvs = [ops[1][2] for ops in batches]
+        assert recvs == [recvs[t % 2] for t in range(len(recvs))], rank
+        assert len(set(recvs)) == min(len(recvs), 2), rank
+        # Each hop after the first sends the block the last one received.
+        assert sends[1:] == recvs[:-1], rank
+        assert sends[0] not in recvs, rank
+
+
+def test_repeated_ring_calls_shift_n_minus_1_and_fold_n_times(runs):
+    _inp, port, _jax = runs
+    n = RING_CASES[REPEAT_CASE][-1]
+    for rank, res in enumerate(port):
+        assert len(res["repeat"]) == len(REPEAT_SCALES)
+        for call in res["repeat"]:
+            # The folds run the plain version on the CPU: K3 launches 0.
+            assert call == {"shifts": n - 1, "k3": 0, "folds": n,
+                            "replayed": True}, (rank, call)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 2, 5, 7), (2, 1, 3, 3), (1, 8, 64, 32),
+                                   (1, 1, 1, 1)])
+def test_pack_kv_aligns_v_and_unpacks_exactly(dtype, shape):
+    from brpc_tpu_torch.ops.ring_attention import KV_ALIGN, pack_kv, unpack_kv
+
+    gen = torch.Generator().manual_seed(sum(shape))
+    k, v = (torch.randn(shape, generator=gen).to(dtype) for _ in range(2))
+    kv = pack_kv(k, v)
+    pk, pv = unpack_kv(kv, k.shape)
+    assert pk.is_contiguous() and pv.is_contiguous()
+    assert torch.equal(pk, k) and torch.equal(pv, v)
+    gap = pv.data_ptr() - pk.data_ptr()
+    assert gap % KV_ALIGN == 0 and 0 <= gap - k.numel() * k.element_size() \
+        < KV_ALIGN
+    assert pk.data_ptr() == kv.data_ptr()
 
 
 def test_ring_shift_start_holds_what_it_sends_until_wait(runs):

@@ -4,7 +4,9 @@
     python3 tools/ring_ab.py TREE [TREE ...] [--rounds N]
         [--setup nccl|shared] [--dtypes bfloat16,float32] [--trace-dir DIR]
 
-Each TREE is the root of a checkout holding ``brpc_tpu_torch/``. Every
+Each TREE is the root of a checkout holding ``brpc_tpu_torch/``;
+``TREE@eager`` runs that checkout in a process that never captures a
+CUDA graph (no ``ring``, no ``graph2``: the eager verbs alone). Every
 round runs the trees in order and then in reverse (A B B A for two), each
 in its own process, which builds that tree's kernels and spawns 4 ranks
 with that tree's ``parallel.launch.run_ranks``: one card a rank over NCCL
@@ -13,7 +15,15 @@ with that tree's ``parallel.launch.run_ranks``: one card a rank over NCCL
 attention layer (b1 h32 hkv8 s8192 d128, causal) and times, with CUDA
 events after a barrier (median of 20, the four timed in turns):
 
-- ``ring``: the tree's ``ring_attention``;
+- ``ring``: the tree's ``ring_attention`` (over NCCL a tree whose ring
+  captures itself as a CUDA graph replays it here: the first call of
+  the check runs eagerly, the second captures);
+- ``eager``: the same ring run eagerly (``_ring_eager``, on a tree that
+  has it: the packed hops without the graph);
+- ``graph2``: over NCCL on a tree with ``_RingGraph``, the same overlapped schedule
+  with K and V shifted as two tensors into fresh buffers each hop
+  (``ring_shift_start([k, v])``, the hop before the packing), captured
+  and replayed as a CUDA graph: the graph without the packing;
 - ``serial``: the same folds with each hop's shift waited on before its
   fold is enqueued (``ring_shift`` then ``flash_attention_carry``: the
   schedule before the overlap);
@@ -22,20 +32,25 @@ events after a barrier (median of 20, the four timed in turns):
 - ``hidden``: (serial - ring) / min(hops, folds), the share of the
   shorter of the two that the ring hides.
 
-Each rank also checks that the ring's output equals the serialized
-schedule's bit for bit. With ``--trace-dir``, the first round takes one
-``torch.profiler`` trace a dtype on every rank, of three rings in a row,
-and reads the last (the first absorb the ranks' skew from starting the
-profiler): the device's busy and idle share over that ring's device
-window (first to last device activity it launched), how much of the hop's device time (NCCL's
-kernels; staged, the copies) runs under K3's kernels (``flash_*``), and
-how much of K3's time falls inside a hop's span (NCCL's kernel; staged,
-from the hop's first copy out to its last copy back, the host's transfer
-between); the Chrome traces are written gzipped into DIR. On a shared
-card each process traces its own work only.
+Each rank also checks that the ring's output (three calls), the eager
+ring's and graph2's equal the serialized schedule's bit for bit. With
+``--trace-dir``, the first round takes one ``torch.profiler`` trace a
+dtype on every rank of the ring and one of the eager ring, each of three
+calls in a row, and reads the last (the first absorb the ranks' skew
+from starting the profiler): the host's time in the call (``host_us``,
+the call's range on the host's clock, and ``host_us_per_hop``, that over
+the ring's n iterations), the device's busy and idle share over that
+call's device window (first to last device activity it launched), how
+much of the hop's device time (NCCL's kernels; staged, the copies) runs
+under K3's kernels (``flash_*``), and how much of K3's time falls inside
+a hop's span (NCCL's kernel; staged, from the hop's first copy out to its
+last copy back, the host's transfer between); the Chrome traces are
+written gzipped into DIR. On a shared card each process traces its own
+work only.
 
 Prints the card's name and power limit, one JSON line per run, then the
-medians per tree as the last line. Needs CUDA cards and nvcc.
+medians per tree, with the least and most of each over the runs, as the
+last line. Needs CUDA cards and nvcc.
 """
 
 from __future__ import annotations
@@ -109,11 +124,12 @@ def _overlap(u, w) -> float:
 TRACED_CALLS = 3
 
 
-def _trace(fn, path: str) -> dict:
+def _trace(fn, path: str, hops: int) -> dict:
     """``TRACED_CALLS`` profiled calls of ``fn``, each after a barrier;
-    the last one's device work (matched to the launches made inside its
-    ``record_function`` range by correlation id: the first calls absorb
-    the ranks' skew from starting the profiler): device busy/idle share
+    the last one's host time (its ``record_function`` range) and device
+    work (matched to the launches made inside that range by correlation
+    id: the first calls absorb the ranks' skew from starting the
+    profiler): host time over ``hops`` iterations, device busy/idle share
     over its device window, the hop's device time under K3 and K3's time
     inside a hop's span. The whole trace is gzipped to ``path``."""
     import torch
@@ -141,6 +157,7 @@ def _trace(fn, path: str) -> dict:
     if not calls:
         return {"device_events": 0}
     lo, hi = calls[-1]
+    host = {"host_us": hi - lo, "host_us_per_hop": (hi - lo) / hops}
     launched = {e["args"]["correlation"] for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and lo <= e["ts"] <= hi and "correlation" in e.get("args",
@@ -152,7 +169,7 @@ def _trace(fn, path: str) -> dict:
            and "dur" in e
            and e.get("args", {}).get("correlation") in launched]
     if not dev:
-        return {"device_events": 0}
+        return {"device_events": 0, **host}
     flash = _union((a, b) for a, b, n, _c, _s in dev if "flash_" in n)
     hop = _union((a, b) for a, b, n, c, _s in dev
                  if "nccl" in n.lower() or c == "gpu_memcpy")
@@ -169,7 +186,7 @@ def _trace(fn, path: str) -> dict:
     busy = _union((a, b) for a, b, _n, _c, _s in dev)
     window = max(e[1] for e in dev) - min(e[0] for e in dev)
     under = _overlap(hop, flash)
-    return {"device_events": len(dev), "window_us": window,
+    return {**host, "device_events": len(dev), "window_us": window,
             "busy_us": _length(busy),
             "idle_share": 1.0 - _length(busy) / window if window else 0.0,
             "flash_us": _length(flash), "hop_us": _length(hop),
@@ -185,14 +202,17 @@ def _trace(fn, path: str) -> dict:
             "trace": os.path.basename(path)}
 
 
-def _rank(dtypes: list, trace_to: str | None) -> dict:
-    """One rank: its shard of the Llama layer in each dtype, timed."""
+def _rank(dtypes: list, trace_to: str | None, graphs: bool = True) -> dict:
+    """One rank: its shard of the Llama layer in each dtype, timed;
+    ``graphs`` False: nothing is captured in this process."""
     import torch
     import torch.distributed as dist
 
     from brpc_tpu_torch.ops import flash_attention as fa
+    from brpc_tpu_torch.ops import ring_attention as ra
     from brpc_tpu_torch.ops.ring_attention import hop_offsets, ring_attention
-    from brpc_tpu_torch.parallel.collectives import ring_shift
+    from brpc_tpu_torch.parallel.collectives import (ring_shift,
+                                                     ring_shift_start)
     from brpc_tpu_torch.parallel.mesh import make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -242,23 +262,54 @@ def _rank(dtypes: list, trace_to: str | None) -> dict:
         def folds():
             return replay(blocks)
 
-        if not torch.equal(ring(q, k, v), serial()):
-            raise RuntimeError(f"rank {rank} {name}: the ring's output "
-                               "differs from the serialized schedule's")
-        ms = _timed({"ring": lambda: ring(q, k, v), "serial": serial,
-                     "hops": hops, "folds": folds}, REPS)
-        ms["hidden"] = ((ms["serial"] - ms["ring"])
-                        / min(ms["hops"], ms["folds"]))
+        def two_tensor(q, k, v):  # the overlap, K and V as two tensors
+            def arriving():
+                kb, vb = k, v
+                for hop in range(n):
+                    shift = (ring_shift_start([kb, vb], group)
+                             if hop + 1 < n else None)
+                    yield kb, vb
+                    if shift is not None:
+                        kb, vb = shift.wait()
+            return ra.ring_replay(q, arriving(), rank, n, causal=True)
+
+        fns = {"serial": serial, "hops": hops, "folds": folds}
+        if graphs:
+            fns["ring"] = lambda: ring(q, k, v)
+        if hasattr(ra, "_ring_eager"):
+            fns["eager"] = lambda: ra._ring_eager(q, k, v, group, rank, n,
+                                                  causal=True)
+        if (graphs and hasattr(ra, "_RingGraph")
+                and dist.get_backend(group) == "nccl"):
+            two_tensor(q, k, v)  # eager first, as the ring's own graph
+            graph2 = ra._RingGraph(two_tensor, q, k, v)
+            fns["graph2"] = lambda: graph2(q, k, v)
+        want = serial()
+        for what in (["ring"] * 3 * graphs + ["eager", "graph2"]):
+            if what in fns and not torch.equal(fns[what](), want):
+                raise RuntimeError(f"rank {rank} {name}: the {what} output "
+                                   "differs from the serialized schedule's")
+        ms = _timed(fns, REPS)
+        if graphs:
+            ms["hidden"] = ((ms["serial"] - ms["ring"])
+                            / min(ms["hops"], ms["folds"]))
         if trace_to:
-            ms["trace"] = _trace(lambda: ring(q, k, v),
-                                 f"{trace_to}_{name}_rank{rank}.json.gz")
+            for what in ("ring", "eager", "graph2"):
+                if what in fns:
+                    ms[f"trace_{what}"] = _trace(
+                        fns[what], f"{trace_to}_{name}_{what}_rank{rank}"
+                        ".json.gz", n)
         out[name] = ms
         del q, k, v, blocks
     return out
 
 
-def one(tree: str, setup: str, dtypes: list, trace_dir: str | None) -> dict:
-    """This tree's ring on 4 spawned ranks, in this process's children."""
+def one(spec: str, setup: str, dtypes: list, trace_dir: str | None) -> dict:
+    """This tree's ring on 4 spawned ranks, in this process's children
+    (``spec``: TREE or TREE@eager)."""
+    tree, _, mode = spec.partition("@")
+    if mode not in ("", "eager"):
+        raise ValueError(f"ring_ab: {spec}: only @eager follows a tree")
     sys.path.insert(0, os.path.abspath(tree))
     from brpc_tpu_torch.ops import _build
     from brpc_tpu_torch.parallel.launch import run_ranks
@@ -267,12 +318,14 @@ def one(tree: str, setup: str, dtypes: list, trace_dir: str | None) -> dict:
     trace_to = None
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
-        label = os.path.basename(os.path.abspath(tree)) or "tree"
+        label = (os.path.basename(os.path.abspath(tree)) or "tree") + (
+            "_eager" if mode else "")
         trace_to = os.path.abspath(os.path.join(trace_dir,
                                                 f"ring_{setup}_{label}"))
-    ranks = run_ranks(RANKS, _rank, (dtypes, trace_to), device_type="cuda",
-                      share_card=setup == "shared", timeout_s=300)
-    return {"tree": tree, "setup": setup, "ranks": ranks}
+    ranks = run_ranks(RANKS, _rank, (dtypes, trace_to, not mode),
+                      device_type="cuda", share_card=setup == "shared",
+                      timeout_s=300)
+    return {"tree": spec, "setup": setup, "ranks": ranks}
 
 
 def main() -> int:
@@ -317,13 +370,20 @@ def main() -> int:
                 return 1
             runs.append(json.loads(r.stdout.strip().splitlines()[-1]))
             print(json.dumps(runs[-1]), flush=True)
-    keys = ("ring", "serial", "hops", "folds", "hidden")
-    summary = {tree: {name: {rank: {key: statistics.median(
-        run["ranks"][rank][name][key] for run in runs if run["tree"] == tree)
-        for key in keys} for rank in range(RANKS)} for name in dtypes}
-        for tree in order}
+    keys = ("ring", "eager", "graph2", "serial", "hops", "folds", "hidden")
+
+    def stats(tree, rank, name, key):
+        vals = [run["ranks"][rank][name][key] for run in runs
+                if run["tree"] == tree and key in run["ranks"][rank][name]]
+        return ({"median": statistics.median(vals), "min": min(vals),
+                 "max": max(vals)} if vals else None)
+
+    summary = {tree: {name: {rank: {key: stats(tree, rank, name, key)
+                                    for key in keys}
+                             for rank in range(RANKS)} for name in dtypes}
+               for tree in order}
     print(json.dumps({"card": smi, "setup": args.setup,
-                      "median_ms": summary}), flush=True)
+                      "ms": summary}), flush=True)
     return 0
 
 
