@@ -4,8 +4,10 @@
   metrics    — Python-registered native tbvars (Counter / LatencyRecorder /
                PassiveGauge, ``torch_``-prefixed by their callers) and the
                dumps (/vars, Prometheus, fibers, tpu:// endpoints).
-  tracing    — rpcz from Python: trace_span() spans, stage() annotations,
-               trace-context access, span dumps, 1-in-N root sampling.
+  tracing    — the port's one span mechanism: stage() timings (Adders on
+               /vars, rpcz annotations, profiler ranges), trace_span()
+               spans, trace-context access, span dumps, 1-in-N root
+               sampling.
   health     — the stall watchdog's state machine (/healthz) and the
                flight recorder (/flightz).
   fleet_view — the fleet plane: cross-process trace assembly (skew-

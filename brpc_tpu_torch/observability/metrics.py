@@ -31,7 +31,7 @@ class Counter:
         self.name = name
 
     def add(self, delta: int = 1) -> None:
-        self._L.tbrpc_var_adder_add(self._h, delta)
+        self._L.held_var_adder_add(self._h, delta)
 
     def value(self) -> int:
         return self._L.tbrpc_var_adder_value(self._h)

@@ -142,8 +142,8 @@ class ServerProcess:
         self._call("reset")
 
     def profile_start(self) -> None:
-        """Start ``torch.profiler`` (CPU and CUDA activities) in the
-        server process."""
+        """Start ``torch.profiler`` (CPU and CUDA activities) over every
+        thread of the server process, its handler threads included."""
         self._call("profile_start")
 
     def profile_stop(self, path: str) -> None:
@@ -201,6 +201,22 @@ def _counters() -> list:
             qz.LAUNCHES_INT8, qz.LAUNCHES_FP8, fa.LAUNCHES]
 
 
+def _profiler(cuda: bool):
+    """A torch profiler over every thread of this process: the server's
+    handlers run on the native callback pool's threads, which a profiler
+    sees only with the all-threads config (where this torch has it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        cfg = _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return profile(activities=acts)
+    return profile(activities=acts, experimental_config=cfg)
+
+
 def _serve(args) -> None:
     from brpc_tpu_torch.runtime.param_server import ParameterServer
     from brpc_tpu_torch.runtime.tensor import TensorArena
@@ -233,12 +249,7 @@ def _serve(args) -> None:
                     c.reset()
                 _say(ok=True)
             elif cmd == "profile_start" and prof is None:
-                from torch.profiler import ProfilerActivity, profile
-
-                acts = [ProfilerActivity.CPU]
-                if ps.device.type == "cuda":
-                    acts.append(ProfilerActivity.CUDA)
-                prof = profile(activities=acts)
+                prof = _profiler(ps.device.type == "cuda")
                 prof.start()
                 _say(ok=True)
             elif cmd == "profile_stop" and prof is not None:

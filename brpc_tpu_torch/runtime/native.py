@@ -331,6 +331,13 @@ def refuse_second_copy(path: str, maps: str = "/proc/self/maps") -> None:
             "the port in a process of its own.")
 
 
+def _gil_held(fn):
+    """``fn`` (a bound function of the library, its types set) called
+    without releasing the interpreter lock: for calls that never block."""
+    proto = ctypes.PYFUNCTYPE(fn.restype, *(fn.argtypes or ()))
+    return proto(ctypes.cast(fn, ctypes.c_void_p).value)
+
+
 def _load() -> ctypes.CDLL:
     path = library_path()
     refuse_second_copy(path)
@@ -416,6 +423,14 @@ def _load() -> ctypes.CDLL:
         ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_char_p]
     L.tbrpc_now_us.restype = ctypes.c_int64
+    # The calls every stage exit makes keep the interpreter lock: an
+    # Adder's add is a store into this thread's own cell, the rpcz switch
+    # one atomic load, and neither waits on anything that waits on Python.
+    # A call that released the lock would hand the interpreter to another
+    # waiting thread each time (the server's handlers and a trainer's
+    # lanes all wait for it).
+    L.held_var_adder_add = _gil_held(L.tbrpc_var_adder_add)
+    L.held_rpcz_enabled = _gil_held(L.tbrpc_rpcz_enabled)
     # Flight recorder + stall watchdog: callable from any plain thread
     # while every fiber worker is parked (observability/health.py).
     L.tbrpc_flight_snapshot.restype = ctypes.c_int64

@@ -52,7 +52,7 @@ from brpc_tpu_torch.runtime.tensor import (E_UNDECODABLE, OnesideGone,
                                            OnesideWindow, PipelineWindow,
                                            TensorArena, TensorChannel,
                                            WireTensor, _as_host_array,
-                                           _dequant_widen,
+                                           _d2h, _dequant_widen,
                                            _detach_device_put_batch,
                                            _device_put_from_view, _metrics,
                                            _stage, add_tensor_service,
@@ -407,7 +407,8 @@ class ParameterServer:
             raise native.RpcError(native.TRPC_EREQUEST,
                                   "push without gradient")
         t0 = time.monotonic()
-        self._update_sem.acquire()
+        with tracing.stage("queue_wait"):
+            self._update_sem.acquire()
         try:
             version = self._apply_update(name, att)
         finally:
@@ -525,7 +526,8 @@ class ParameterServer:
                     grad = run.view(np.dtype(entry["dtype"])).reshape(
                         tuple(entry["shape"]))
                     logical = int(grad.nbytes)
-                self._update_sem.acquire()
+                with tracing.stage("queue_wait"):
+                    self._update_sem.acquire()
                 try:
                     version = self._apply_update(name, grad)
                 finally:
@@ -586,8 +588,8 @@ class ParameterServer:
             view[len(header):] = data.reshape(-1)
         elif nbytes:
             # Raw: one D2H straight into the arena pages.
-            torch.from_numpy(view[len(header):]).copy_(
-                p.detach().contiguous().reshape(-1).view(torch.uint8))
+            _d2h(p.detach().contiguous().reshape(-1).view(torch.uint8),
+                 torch.from_numpy(view[len(header):]))
         try:
             win.publish(name, off, total, version)
         except (ValueError, RuntimeError):
@@ -737,20 +739,22 @@ class ParameterServer:
             self._check_writable_locked(name)
         if isinstance(att, codec_mod.QuantizedView):
             codec_mod.note(name, att.codec, att.nbytes, att.wire_nbytes)
-            with tracing.stage("device_put"):
-                q_dev, s_dev = _detach_device_put_batch(
-                    [(att.q, att.scales)], self.device)
+            q_dev, s_dev = _detach_device_put_batch(
+                [(att.q, att.scales)], self.device)
             with tracing.stage("dequant"):
                 grad = _dequant_widen(q_dev, s_dev, att.codec, att.block,
                                       att.n, att.shape)
         else:
-            with tracing.stage("device_put"):
-                grad = _device_put_from_view(att, self.device)
+            grad = _device_put_from_view(att, self.device)
         with self._mu:
             lock = self._update_locks.get(name)
             if lock is None:  # retired since the check above
                 raise self._missing_locked(name)
-        with lock:
+        # The lock's wait is the rest of this update's queue wait, whose
+        # call the admission above counted.
+        with tracing.stage("queue_wait", calls=0):
+            lock.acquire()
+        try:
             with self._mu:
                 self._check_writable_locked(name)
                 p = self._params[name]
@@ -773,6 +777,8 @@ class ParameterServer:
             # Inside the update lock: publish order == version order, so
             # a mapped reader's versions never go backwards.
             self._publish_oneside(name)
+        finally:
+            lock.release()
         return version
 
 
@@ -1224,10 +1230,9 @@ class ParameterClient:
                             err = native.RpcError(
                                 E_UNDECODABLE, "undecodable tensor "
                                 f"payload for {t['name']}: {ve}")
-                with _stage("device_put"):
-                    qdevs = _detach_device_put_batch(
-                        [(q, s) for _t, q, s in quant], dev)
-                    rdevs = [_device_put_from_view(a, dev) for _t, a in raws]
+                qdevs = _detach_device_put_batch(
+                    [(q, s) for _t, q, s in quant], dev)
+                rdevs = [_device_put_from_view(a, dev) for _t, a in raws]
             with _stage("dequant"):
                 for i, (t, _q, _s) in enumerate(quant):
                     n = int(np.prod(t["shape"], dtype=np.int64))

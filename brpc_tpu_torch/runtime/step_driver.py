@@ -43,9 +43,9 @@ apply (``unpushed``) — re-pushing an applied gradient double-steps the
 server's momentum, so salvage must be per-name.
 
 Instrumented: one ``train_step`` rpcz root span per step with a child
-span per node, plus ``torch_step_exposed_comm_ms`` /
-``torch_step_overlapped_comm_ms`` recorders on /vars (samples in
-milliseconds, as named).
+span per node (each also a profiler range while a torch profiler runs),
+plus ``torch_step_exposed_comm`` / ``torch_step_overlapped_comm``
+latency recorders on /vars (samples in microseconds).
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ from brpc_tpu_torch.runtime.param_server import PartialPushError
 from brpc_tpu_torch.runtime.state import to_tensor
 from brpc_tpu_torch.runtime.step_sched import (COMPUTE, WIRE, StepFailure,
                                                StepGraph, run_graph)
-from brpc_tpu_torch.runtime.tensor import PipelineWindow
+from brpc_tpu_torch.runtime.tensor import PipelineWindow, _d2h
 from brpc_tpu_torch.runtime.tensor import _metrics as _tensor_metrics
 
 _metrics_cache = None
@@ -113,9 +113,10 @@ def _metrics():
         _metrics_cache = {
             # Full step wall time (us, the standard recorder unit).
             "step": obs.latency("torch_step_driver_step"),
-            # Samples are MILLISECONDS, as the names say.
-            "exposed": obs.latency("torch_step_exposed_comm_ms"),
-            "overlapped": obs.latency("torch_step_overlapped_comm_ms"),
+            # The compute lane's wait on the wire, and the wire time
+            # hidden under compute, per step (us).
+            "exposed": obs.latency("torch_step_exposed_comm"),
+            "overlapped": obs.latency("torch_step_overlapped_comm"),
             "steps": obs.counter("torch_step_driver_steps"),
             "partial": obs.counter("torch_step_driver_partial_failures"),
         }
@@ -155,11 +156,13 @@ class _Recorder:
             self.totals[k] += stats[k]
         self._m["steps"].add(1)
         self._m["step"].record_s(time.monotonic() - t0)
-        self._m["exposed"].record_us(int(stats["exposed_comm_ms"]))
-        self._m["overlapped"].record_us(int(stats["overlapped_comm_ms"]))
+        self._m["exposed"].record_s(trace.exposed_wait_s)
+        self._m["overlapped"].record_s(trace.overlapped_comm_s())
 
 
 def _annotate(trace) -> None:
+    if not tracing.rpcz_enabled():
+        return
     tracing.annotate(f"exposed_comm={int(trace.exposed_wait_s * 1e6)}us")
     tracing.annotate(
         f"overlapped_comm={int(trace.overlapped_comm_s() * 1e6)}us")
@@ -579,7 +582,7 @@ class CollectiveStepDriver(_Recorder):
         def host_grad(name) -> np.ndarray:
             g = grads[name]
             handoff.adopt(g)
-            return g.detach().cpu().numpy()  # D2H on the wire lane
+            return _d2h(g.detach()).numpy()  # D2H on the wire lane
 
         def make_allreduce(name):
             def fn(done):

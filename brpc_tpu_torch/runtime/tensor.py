@@ -24,6 +24,9 @@ Device edges and their hazards:
   * All launches and copies go on torch's current stream, the same one on
     every handler thread, so a pull's D2H is ordered after the push
     kernel that produced the tensor.
+  * Every copy between host pages and a CUDA device goes through
+    ``_h2d`` / ``_d2h``: the ``h2d`` / ``d2h`` stages and the
+    ``torch_wire_h2d_bytes`` / ``torch_wire_d2h_bytes`` counters.
 """
 
 from __future__ import annotations
@@ -198,6 +201,8 @@ _metrics_mu = threading.Lock()
 
 def _metrics():
     global _metrics_cache
+    if _metrics_cache is not None:
+        return _metrics_cache
     with _metrics_mu:
         if _metrics_cache is None:
             from brpc_tpu_torch.observability import metrics as obs
@@ -222,6 +227,11 @@ def _metrics():
                 # Waits that actually parked on a range still referenced
                 # by the wire (the reference-drain backpressure signal).
                 "wait_stalls": obs.counter("torch_tensor_arena_wait_stalls"),
+                # Bytes of the copies between host pages and a CUDA
+                # device (_h2d / _d2h); their time is the h2d / d2h
+                # stages'.
+                "h2d_bytes": obs.counter("torch_wire_h2d_bytes"),
+                "d2h_bytes": obs.counter("torch_wire_d2h_bytes"),
             }
         return _metrics_cache
 
@@ -288,11 +298,36 @@ class WireTensor:
         self.placed = placed
 
 
+def _h2d(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The wire's one H2D: a blocking copy of host tensor ``t`` onto CUDA
+    ``device``, as the ``h2d`` stage, its bytes in
+    ``torch_wire_h2d_bytes``."""
+    with _stage("h2d"):
+        out = t.to(device)
+    _metrics()["h2d_bytes"].add(t.numel() * t.element_size())
+    return out
+
+
+def _d2h(src: torch.Tensor, dst: Optional[torch.Tensor] = None
+         ) -> torch.Tensor:
+    """The wire's one D2H: a blocking copy of ``src`` into host tensor
+    ``dst`` (a new one when None), returned. From a CUDA tensor it is the
+    ``d2h`` stage, its bytes in ``torch_wire_d2h_bytes``; from a CPU one a
+    plain copy (or, without ``dst``, ``src`` itself) that counts
+    nothing."""
+    if not src.is_cuda:
+        return src if dst is None else dst.copy_(src)
+    with _stage("d2h"):
+        out = src.cpu() if dst is None else dst.copy_(src)
+    _metrics()["d2h_bytes"].add(src.numel() * src.element_size())
+    return out
+
+
 def _as_host_array(x) -> np.ndarray:
     """torch tensor -> host ndarray (one D2H copy for a CUDA tensor, a
     shared view for a contiguous CPU one); ndarray passes through."""
     if isinstance(x, torch.Tensor):
-        return x.detach().contiguous().cpu().numpy()
+        return _d2h(x.detach().contiguous()).numpy()
     return np.asarray(x)
 
 
@@ -305,7 +340,7 @@ def _device_put_from_view(arr: np.ndarray, device: torch.device
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if device.type == "cpu":
         return t.clone()
-    return t.to(device)
+    return _h2d(t, device)
 
 
 def _detach_device_put_batch(parts, device: torch.device) -> list:
@@ -392,7 +427,7 @@ class TensorArena:
             nbytes = t.numel() * t.element_size()
             off = self.alloc(nbytes)
             view = self.view(off, nbytes)
-            torch.from_numpy(view).copy_(t.reshape(-1).view(torch.uint8))
+            _d2h(t.reshape(-1).view(torch.uint8), torch.from_numpy(view))
             return off, nbytes, view.view(dt).reshape(tuple(t.shape))
         host = np.asarray(array)
         if host.nbytes == 0:
@@ -625,11 +660,10 @@ def consume_oneside_payload(payload, device=None,
                                           codec_mod)
     arr = u8.view(np.dtype(meta["dtype"])).reshape(tuple(meta["shape"]))
     dev = resolve_device(device)
-    with _stage("device_put"):
-        t = torch.from_numpy(arr)
-        # The owned buffer outlives the tensor and is never rewritten, so
-        # a CPU target keeps it; a CUDA target copies (blocking H2D).
-        return t if dev.type == "cpu" else t.to(dev)
+    t = torch.from_numpy(arr)
+    # The owned buffer outlives the tensor and is never rewritten, so a
+    # CPU target keeps it; a CUDA target copies (blocking H2D).
+    return t if dev.type == "cpu" else _h2d(t, dev)
 
 
 class TensorView:
@@ -707,8 +741,7 @@ def consume_pull_reply(payload: bytes, view: TensorView,
             arr = view.ndarray().view(np.dtype(meta["dtype"])).reshape(
                 tuple(meta["shape"]))
             nbytes = view.nbytes
-            with _stage("device_put"):
-                dev = _device_put_from_view(arr, device)
+            dev = _device_put_from_view(arr, device)
     return rest, dev, nbytes
 
 
@@ -1134,75 +1167,77 @@ def add_tensor_service(server: native.Server, name: str,
     def trampoline(ctx, method, req, req_len, att, att_len,
                    resp, resp_len, resp_arena, resp_off, resp_att_len,
                    resp_autofree, error_code, err_text, err_text_cap):
-        t0 = time.monotonic()
-        try:
-            request = ctypes.string_at(req, req_len) if req_len else b""
-            att_view = None
-            if att_len:
-                buf = (ctypes.c_uint8 * att_len).from_address(att)
-                att_view = np.ctypeslib.as_array(buf)
-                if len(request) >= 4:
-                    # Typed sends prefix the payload with their header.
-                    meta = None
-                    try:
-                        meta, request = _decode_meta_ex(request)
-                    except Exception:  # noqa: BLE001 — raw-byte sender
-                        pass
-                    # A decoded header that does not fit the payload is an
-                    # undecodable typed send: answer a clean error, never
-                    # hand the handler the flat wire bytes.
-                    if meta is not None:
+        # One clock for the handler's time: the serve stage's, which the
+        # handler recorder reads too.
+        with _stage("serve") as st:
+            try:
+                request = ctypes.string_at(req, req_len) if req_len else b""
+                att_view = None
+                if att_len:
+                    buf = (ctypes.c_uint8 * att_len).from_address(att)
+                    att_view = np.ctypeslib.as_array(buf)
+                    if len(request) >= 4:
+                        # Typed sends prefix the payload with their header.
+                        meta = None
                         try:
-                            if "codec" in meta:
-                                from brpc_tpu_torch.runtime import (
-                                    codec as codec_mod)
+                            meta, request = _decode_meta_ex(request)
+                        except Exception:  # noqa: BLE001 — raw-byte sender
+                            pass
+                        # A decoded header that does not fit the payload is an
+                        # undecodable typed send: answer a clean error, never
+                        # hand the handler the flat wire bytes.
+                        if meta is not None:
+                            try:
+                                if "codec" in meta:
+                                    from brpc_tpu_torch.runtime import (
+                                        codec as codec_mod)
 
-                                att_view = codec_mod.QuantizedView(
-                                    meta, att_view)
-                            else:
-                                att_view = att_view.view(
-                                    np.dtype(meta["dtype"])).reshape(
-                                        tuple(meta["shape"]))
-                        except Exception as e:  # noqa: BLE001
-                            raise RpcError(
-                                E_UNDECODABLE,
-                                f"undecodable tensor payload "
-                                f"(meta={meta!r}): {e}") from e
-            with device_ctx():
-                r, out_arr = handler(method.decode(), request, att_view)
-                off = nbytes = 0
-                if isinstance(out_arr, WireTensor):
-                    # Pre-encoded response: stage the bytes, send its
-                    # header.
-                    if out_arr.placed is not None:
-                        off, nbytes = out_arr.placed
-                    else:
-                        off, nbytes, _ = srv_arena.place(out_arr.data)
-                    r = out_arr.header + r
-                elif out_arr is not None:
-                    off, nbytes, host = srv_arena.place(out_arr)
-                    r = _encode_meta(host) + r
-            if nbytes:
-                resp_arena[0] = srv_arena.handle
-                resp_off[0] = off
-                resp_att_len[0] = nbytes
-                # Autofree: the C side frees AFTER taking the response
-                # ref, so the range returns once the client releases.
-                resp_autofree[0] = 1
-            if r:
-                buf = L.tbrpc_alloc(len(r))
-                ctypes.memmove(buf, r, len(r))
-                resp[0] = buf
-                resp_len[0] = len(r)
-        except RpcError as e:
-            error_code[0] = e.code if e.code != 0 \
-                else native.TRPC_EINTERNAL
-            fill_err_text(err_text, err_text_cap, e.text)
-        except Exception as e:  # noqa: BLE001 — handler bug => EINTERNAL
-            error_code[0] = native.TRPC_EINTERNAL
-            fill_err_text(err_text, err_text_cap, f"{type(e).__name__}: {e}")
-        finally:
-            _metrics()["serve"].record_s(time.monotonic() - t0)
+                                    att_view = codec_mod.QuantizedView(
+                                        meta, att_view)
+                                else:
+                                    att_view = att_view.view(
+                                        np.dtype(meta["dtype"])).reshape(
+                                            tuple(meta["shape"]))
+                            except Exception as e:  # noqa: BLE001
+                                raise RpcError(
+                                    E_UNDECODABLE,
+                                    f"undecodable tensor payload "
+                                    f"(meta={meta!r}): {e}") from e
+                with device_ctx():
+                    r, out_arr = handler(method.decode(), request, att_view)
+                    off = nbytes = 0
+                    if isinstance(out_arr, WireTensor):
+                        # Pre-encoded response: stage the bytes, send its
+                        # header.
+                        if out_arr.placed is not None:
+                            off, nbytes = out_arr.placed
+                        else:
+                            off, nbytes, _ = srv_arena.place(out_arr.data)
+                        r = out_arr.header + r
+                    elif out_arr is not None:
+                        off, nbytes, host = srv_arena.place(out_arr)
+                        r = _encode_meta(host) + r
+                if nbytes:
+                    resp_arena[0] = srv_arena.handle
+                    resp_off[0] = off
+                    resp_att_len[0] = nbytes
+                    # Autofree: the C side frees AFTER taking the response
+                    # ref, so the range returns once the client releases.
+                    resp_autofree[0] = 1
+                if r:
+                    buf = L.tbrpc_alloc(len(r))
+                    ctypes.memmove(buf, r, len(r))
+                    resp[0] = buf
+                    resp_len[0] = len(r)
+            except RpcError as e:
+                error_code[0] = e.code if e.code != 0 \
+                    else native.TRPC_EINTERNAL
+                fill_err_text(err_text, err_text_cap, e.text)
+            except Exception as e:  # noqa: BLE001 — handler bug => EINTERNAL
+                error_code[0] = native.TRPC_EINTERNAL
+                fill_err_text(err_text, err_text_cap,
+                              f"{type(e).__name__}: {e}")
+        _metrics()["serve"].record_us(st.us)
 
     cb = _TENSOR_CB(trampoline)
     server._cbs.append(cb)  # keep alive with the server

@@ -178,6 +178,39 @@ def test_server_on_the_card_goes_through_the_kernels(cuda):
         ps.stop()
 
 
+def test_wire_counters_count_each_copy_to_and_from_the_card(cuda):
+    """A raw push and a raw pull of an N-byte tensor through a server in
+    this process cross the host four times: the push's D2H (client) and
+    H2D (server), the pull's D2H (server) and H2D (client). Each counter
+    and each copy stage moves by exactly that."""
+    from brpc_tpu_torch.observability import metrics
+    from brpc_tpu_torch.runtime.param_server import (ParameterClient,
+                                                     ParameterServer)
+
+    shape = (300, 257)
+    nbytes = 4 * shape[0] * shape[1]
+    ps = ParameterServer({"w": np.zeros(shape, np.float32)}, lr=0.05,
+                         momentum=0.8, device=cuda)
+    port = ps.start()
+    cl = ParameterClient(f"tpu://127.0.0.1:{port}", device=cuda)
+    names = ("torch_wire_h2d_bytes", "torch_wire_d2h_bytes",
+             "torch_stage_h2d_calls", "torch_stage_d2h_calls")
+    try:
+        cl.meta()
+        before = {n: metrics.counter(n).value() for n in names}
+        assert cl.push_grad("w", torch.ones(shape, device=cuda)) == 1
+        version, pulled = cl.pull("w")
+        assert version == 1 and pulled.device.type == "cuda"
+        got = {n: metrics.counter(n).value() - before[n] for n in names}
+        assert got == {"torch_wire_h2d_bytes": 2 * nbytes,
+                       "torch_wire_d2h_bytes": 2 * nbytes,
+                       "torch_stage_h2d_calls": 2,
+                       "torch_stage_d2h_calls": 2}
+    finally:
+        cl.close()
+        ps.stop()
+
+
 def test_fleet_reshard_and_oneside_pull_on_the_card(cuda):
     """A 2-shard fleet on the card: pushes launch K1 on the shard, a live
     1 -> 2 reshard keeps the state equal to a plain replay, and an int8
