@@ -95,6 +95,17 @@ checkout. Phases, each fatal on failure:
      serial (1e-6), versions == steps, and K1 launched on the server
      once per name per step and never in the ranks; logs each step's
      wall time and the time its collectives took.
+ 11. the MLA + MoE block stack (models/mla_moe.py) at Moonlight-16B-A3B's
+     widths, the benchmark configuration's depth, experts held and
+     vocabulary slice (1 dense + 4 MoE layers, experts 0-7 of 64, 20480
+     ids) at 2 sequences of 512 positions: one overlapped step under an
+     OverlappedStepDriver against a ParameterServer in this process over
+     tpu://, its loss and the server's momenta (the step's gradient)
+     held against the benchmark's plain reference
+     (benchmark/harness/reference_mla_moe.py) dispatching with the
+     step's recorded routes (loss within 1e-5, each tensor within 1e-4
+     of its largest value), the routes against the reference's own
+     choice outside near ties, and K1 launched once per tensor.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after.
@@ -158,6 +169,14 @@ RING_SHARDS = 4
 PLANE = {"sizes": [768] + [3072, 768] * 12, "batch": 8 * 1024,
          "ps_steps": 3, "dp_steps": 2, "pp_steps": 2, "microbatches": 4,
          "tp_sizes": [768, 3072, 768, 3072, 768], "tp_steps": 2}
+# Phase 11: the MLA + MoE stack at the benchmark configuration's widths,
+# depth, experts held and vocabulary slice, at a short sequence.
+# Arenas by the cell's rule (its mix): the server's default 256 MiB
+# cannot stage a window of pulls of 92-185 MB tensors.
+MLA_MOE = {"config": "benchmark/configs/moonlight-16b-a3b-ep8.json",
+           "mix": "benchmark/traffic/mla-moe-own-process.json",
+           "batch": 2, "seq": 512, "loss_rtol": 1e-5, "grad_rtol": 1e-4,
+           "tie_width": 1e-4}
 # Phase 7: the serving decoder at gpt2's embedding widths (n_embd,
 # vocab_size, n_ctx as max_pos); 16 sessions, prompts 32-256 tokens,
 # budgets 64-256; sessions 0-3 share a 64-token (4-block) prompt prefix.
@@ -3639,6 +3658,86 @@ def mesh_harness_path(seed: int, smi: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 11
+
+def mla_moe_path(seed: int, smi: str) -> dict:
+    """Phase 11: one step of the MLA + MoE stack through the overlapped
+    driver against a parameter server on the card, held against the
+    benchmark's plain reference. Returns the launch counts."""
+    import gc
+
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "benchmark"))
+    from harness import checks, reference_mla_moe, train_blocks
+
+    from brpc_tpu_torch.models.mla_moe import MLAMoEStack
+    from brpc_tpu_torch.runtime.param_server import (ParameterClient,
+                                                     ParameterServer)
+    from brpc_tpu_torch.runtime.step_driver import OverlappedStepDriver
+    from brpc_tpu_torch.runtime.tensor import TensorArena
+
+    gc.collect()
+    dev = torch.device("cuda")
+    with open(os.path.join(HERE, MLA_MOE["config"])) as f:
+        doc = json.load(f)
+    cfg, held = train_blocks.arch(doc["model"])
+    model = doc["model"]
+    w = train_blocks.weights(seed, cfg, held, model["initializer_range"],
+                             dev)
+    bias = train_blocks.correction_bias(seed, cfg,
+                                        model["correction_bias_std"], dev)
+    (x, y), = train_blocks.batches(seed, 1, MLA_MOE["batch"], MLA_MOE["seq"],
+                                   cfg["vocab_size"], dev)
+    n_w = sum(v.numel() for v in w.values())
+    log(f"MLA + MoE stack: {len(w)} tensors, {n_w} fp32 weights "
+        f"({4 * n_w / 1e9:.2f} GB), experts {held} of "
+        f"{cfg['n_routed_experts']}, batch {tuple(x.shape)}")
+    with open(os.path.join(HERE, MLA_MOE["mix"])) as f:
+        srv_bytes, cl_bytes = train_blocks.arena_bytes(
+            json.load(f), reference_mla_moe.shapes(cfg, held))
+    h = MLAMoEStack(cfg, experts_held=held, correction_bias=bias,
+                    device=dev)
+    ps = ParameterServer({k: v.clone() for k, v in w.items()},
+                         lr=LR, momentum=BETA, device=dev,
+                         arena=TensorArena(srv_bytes))
+    cl = ParameterClient(f"tpu://127.0.0.1:{ps.start()}", device=dev,
+                         arena=TensorArena(cl_bytes))
+    try:
+        driver = OverlappedStepDriver(cl, h, overlap=True, window=4)
+        driver.prime()
+        loss, launches = _counted(
+            "MLA + MoE overlapped step (the first: no warm-up)",
+            lambda: driver.step(x, y), {"brpc_fused_momentum": len(w)})
+        routes = dict(zip(h.moe_layers, h.last_routes))
+        st = ps.state()
+    finally:
+        cl.close()
+        ps.stop()
+        ps.server.close()
+    if set(driver.versions.values()) != {1}:
+        fail(f"MLA + MoE: versions {set(driver.versions.values())} != {{1}}")
+    want, ref_loss, own = reference_mla_moe.grads(w, bias, x, y, cfg, held,
+                                                  routes)
+    if not abs(loss - ref_loss) <= MLA_MOE["loss_rtol"] * abs(ref_loss):
+        fail(f"MLA + MoE: loss {loss!r} vs the reference's {ref_loss!r}")
+    worst = 0.0
+    for k, g in want.items():
+        err = checks.rel_max(st.momenta[k], g)
+        worst = max(worst, err)
+        if not err <= MLA_MOE["grad_rtol"]:
+            fail(f"MLA + MoE: {k} gradient {err:.3g} of its largest value "
+                 f"from the reference's")
+    flips = reference_mla_moe.route_flips([routes], [own],
+                                          MLA_MOE["tie_width"])
+    if flips:
+        fail(f"MLA + MoE: {flips} routes differ from the reference's own "
+             f"choice outside near ties")
+    log(f"  loss {loss:.6f} vs the reference's {ref_loss:.6f}, worst "
+        f"gradient {worst:.3g} of its largest value, 0 route flips ({smi})")
+    return {"mla_moe": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3699,6 +3798,9 @@ def main() -> int:
     t0 = time.monotonic()
     by_path.update(mesh_harness_path(args.seed, smi))
     log(f"== phase 10 (mesh harness) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    by_path.update(mla_moe_path(args.seed, smi))
+    log(f"== phase 11 (MLA + MoE stack) {time.monotonic() - t0:.1f} s")
     for r in rows:
         # Every path, zeros included: the serving runs list 0 for each.
         r["launches_by_path"] = {p: c.get(r["name"], 0)
