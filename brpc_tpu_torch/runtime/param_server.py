@@ -978,14 +978,22 @@ class ParameterClient:
         """-> (version, value) straight from the peer's published window,
         or None when this pull should ride the RPC path (each such miss
         counts as a fallback; the RPC path serves the same committed
-        state)."""
+        state). A CUDA target lands the read in the reader's page-locked
+        buffer; a CPU one keeps an owned buffer, which its tensor
+        aliases."""
         m = _metrics()
         r = self._ensure_oneside_reader()
         if r is None:
             m["oneside_fallbacks"].add(1)
             return None
         try:
-            version, payload = r.read_np(name)
+            if device.type == "cuda":
+                version, value = r.read_to_device(name, device,
+                                                  note_name=name)
+            else:
+                version, payload = r.read_np(name)
+                value = consume_oneside_payload(payload, device,
+                                                note_name=name)
         except OnesideGone:
             self._drop_oneside_reader()
             m["oneside_fallbacks"].add(1)
@@ -993,8 +1001,6 @@ class ParameterClient:
         except OnesideMiss:
             m["oneside_fallbacks"].add(1)
             return None
-        try:
-            value = consume_oneside_payload(payload, device, note_name=name)
         except (ValueError, KeyError, struct.error):
             m["oneside_fallbacks"].add(1)  # undecodable publication
             return None

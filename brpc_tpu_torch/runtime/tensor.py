@@ -21,6 +21,12 @@ Device edges and their hazards:
     memory, which has finished reading the pages when it returns — so the
     view may be released right after (no ``non_blocking`` copies from
     arena views).
+  * A one-sided pull to a CUDA target (``OnesideReader.read_to_device``)
+    lands in the reader's page-locked buffer, reused from read to read,
+    and DMAs from there with the same blocking copy, under a lock held
+    until the copy returns: the next read may overwrite the buffer as
+    soon as the tensor is out. A failed pinned allocation sends that
+    reader's reads to ``read_np`` for good.
   * All launches and copies go on torch's current stream, the same one on
     every handler thread, so a pull's D2H is ordered after the push
     kernel that produced the tensor.
@@ -224,6 +230,13 @@ def _metrics():
                 "oneside_hits": obs.counter("torch_oneside_pull_hits"),
                 "oneside_fallbacks": obs.counter(
                     "torch_oneside_pull_fallbacks"),
+                # One-sided reads to a CUDA target landed in the reader's
+                # page-locked buffer, and those that took read_np because
+                # its pinned allocation raised.
+                "oneside_pinned_reads": obs.counter(
+                    "torch_oneside_pinned_reads"),
+                "oneside_pinned_fallbacks": obs.counter(
+                    "torch_oneside_pinned_fallbacks"),
                 # Waits that actually parked on a range still referenced
                 # by the wire (the reference-drain backpressure signal).
                 "wait_stalls": obs.counter("torch_tensor_arena_wait_stalls"),
@@ -556,15 +569,34 @@ def oneside_stats() -> dict:
     return json.loads(buf.value.decode())
 
 
+# The landing buffer of OnesideReader.read_to_device grows in steps of
+# this many bytes.
+_LANDING_STEP = 2 << 20
+
+
+def _pinned_empty(nbytes: int) -> torch.Tensor:
+    """``nbytes`` of page-locked host memory from torch's host allocator
+    (raises RuntimeError where no card can pin)."""
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+
 class OnesideReader:
     """Reader side: a same-host mapping of a peer's published window.
     ``read_np`` copies one committed version out under the reader's epoch
     pin and raises :class:`OnesideMiss`/:class:`OnesideGone` when the
-    caller should take the RPC path instead."""
+    caller should take the RPC path instead. ``read_to_device`` lands the
+    copy in a page-locked buffer this reader reuses and hands back a
+    tensor on the device."""
 
     def __init__(self, handle):
         self._L = _bind_tensor_api(lib())
         self._h = handle
+        # read_to_device's landing buffer (None until its first read),
+        # held under _landing_mu from the read until the device copy
+        # returns; _pin_failed once a pinned allocation raised.
+        self._landing: Optional[torch.Tensor] = None
+        self._landing_mu = threading.Lock()
+        self._pin_failed = False
 
     @classmethod
     def map(cls, desc: dict) -> Optional["OnesideReader"]:
@@ -585,10 +617,11 @@ class OnesideReader:
         version, arr = self.read_np(name)
         return version, arr.tobytes()
 
-    def read_np(self, name: str) -> Tuple[int, np.ndarray]:
-        """-> (version, OWNED uint8 ndarray): stat for the size, then one
-        native copy into a 64-byte-aligned buffer the caller owns (nothing
-        ever rewrites it, so decode may view it in place)."""
+    def _read_into(self, name: str, buffer: Callable[[int], np.ndarray]
+                   ) -> Tuple[int, np.ndarray]:
+        """Stat for the size, then one native copy of the committed
+        version into ``buffer(size)``, a 64-byte-aligned uint8 array ->
+        (version, that array)."""
         if not self._h:
             raise OnesideGone(name, 3)
         nbytes = ctypes.c_uint64()
@@ -602,29 +635,109 @@ class OnesideReader:
             if rc not in (0, 4):
                 break
             need = nbytes.value
-            backing = np.empty(need + 64, np.uint8)
-            shift = (-backing.ctypes.data) % 64
-            arr = backing[shift:shift + need]
+            arr = buffer(need)
             rc = self._L.tbrpc_oneside_read_into(
-                self._h, name.encode(),
-                ctypes.c_void_p(backing.ctypes.data + shift), need,
-                ctypes.byref(nbytes), ctypes.byref(version))
+                self._h, name.encode(), ctypes.c_void_p(arr.ctypes.data),
+                need, ctypes.byref(nbytes), ctypes.byref(version))
             if rc == 0:
                 return int(version.value), arr
         if rc == 3:
             raise OnesideGone(name, rc)
         raise OnesideMiss(name, rc)
 
+    def read_np(self, name: str) -> Tuple[int, np.ndarray]:
+        """-> (version, OWNED uint8 ndarray): one native copy into a
+        64-byte-aligned buffer the caller owns (nothing ever rewrites it,
+        so decode may view it in place)."""
+        return self._read_into(
+            name, lambda need: _aligned64(np.empty(need + 64, np.uint8),
+                                          need))
+
+    def _landing_view(self, need: int) -> np.ndarray:
+        """A 64-byte-aligned ``need``-byte view of the landing buffer,
+        grown first when it is too small (the largest payload so far plus
+        64 bytes, rounded up to ``_LANDING_STEP``; it never shrinks)."""
+        buf = self._landing
+        if buf is None or buf.numel() < need + 64:
+            self._landing = None  # the old buffer goes back first
+            size = -(-(need + 64) // _LANDING_STEP) * _LANDING_STEP
+            buf = self._landing = _pinned_empty(size)
+        return _aligned64(buf.numpy(), need)
+
+    def read_to_device(self, name: str, device,
+                       note_name: Optional[str] = None
+                       ) -> Tuple[int, torch.Tensor]:
+        """-> (version, tensor on ``device``) of the committed
+        publication: one native copy into the page-locked landing buffer
+        (the ``oneside_read`` stage), then the blocking copy to the device
+        from there, decoded as :func:`consume_oneside_payload` decodes. A
+        CPU device gets a clone. Raises as ``read_np`` does; once a pinned
+        allocation has raised, every read takes ``read_np`` (counted in
+        ``torch_oneside_pinned_fallbacks``)."""
+        dev = resolve_device(device)
+        m = _metrics()
+        with self._landing_mu:
+            if not self._pin_failed:
+                try:
+                    with _stage("oneside_read"):
+                        version, u8 = self._read_into(name,
+                                                      self._landing_view)
+                except RuntimeError:
+                    self._pin_failed = True  # no pinned memory: read_np
+                else:
+                    meta, body = _oneside_frame(u8)
+                    value = _consume_oneside_body(meta, body, dev, note_name,
+                                                  owned=False)
+                    m["oneside_pinned_reads"].add(1)
+                    return version, value
+        version, payload = self.read_np(name)
+        m["oneside_pinned_fallbacks"].add(1)
+        return version, consume_oneside_payload(payload, dev, note_name)
+
     def close(self) -> None:
         if self._h:
             self._L.tbrpc_oneside_unmap(self._h)
             self._h = None
+        self._landing = None
 
     def __del__(self):
         try:
             self.close()
         except Exception:  # noqa: BLE001
             pass
+
+
+def _aligned64(backing: np.ndarray, need: int) -> np.ndarray:
+    """The ``need`` bytes of ``backing`` (which holds ``need`` + 64) that
+    start 64-byte aligned."""
+    shift = (-backing.ctypes.data) % 64
+    return backing[shift:shift + need]
+
+
+def _oneside_frame(payload: np.ndarray) -> Tuple[dict, np.ndarray]:
+    """A framed uint8 payload -> (metadata dict, view of the bytes)."""
+    (n,) = struct.unpack("<I", payload[:4].tobytes())
+    return json.loads(payload[4:4 + n].tobytes().decode()), payload[4 + n:]
+
+
+def _consume_oneside_body(meta: dict, u8: np.ndarray, dev: torch.device,
+                          note_name: Optional[str], owned: bool):
+    """A one-sided payload's bytes ``u8`` -> tensor on ``dev``. ``owned``:
+    nothing rewrites ``u8``, so a raw CPU result may view it in place;
+    otherwise every result is a copy, complete on return."""
+    if "codec" in meta:
+        from brpc_tpu_torch.runtime import codec as codec_mod
+
+        if note_name is not None:
+            nbytes = int(np.prod(meta["shape"], dtype=np.int64)
+                         ) * np.dtype(meta["dtype"]).itemsize
+            codec_mod.note(note_name, meta["codec"], nbytes, int(u8.nbytes))
+        with _stage("dequant"):
+            return _dequant_put_from_view(meta, u8, dev, codec_mod)
+    arr = u8.view(np.dtype(meta["dtype"])).reshape(tuple(meta["shape"]))
+    if owned and dev.type == "cpu":
+        return torch.from_numpy(arr)
+    return _device_put_from_view(arr, dev)
 
 
 def consume_oneside_payload(payload, device=None,
@@ -639,31 +752,14 @@ def consume_oneside_payload(payload, device=None,
     ``payload`` is ``bytes`` (copied once) or an OWNED uint8 ndarray
     (:meth:`OnesideReader.read_np`), whose buffer nothing rewrites: the
     raw branch views it in place."""
-    owned = isinstance(payload, np.ndarray)
-    if owned:
-        (n,) = struct.unpack("<I", payload[:4].tobytes())
-        meta = json.loads(payload[4:4 + n].tobytes().decode())
-        u8 = payload[4 + n:]
+    if isinstance(payload, np.ndarray):
+        meta, u8 = _oneside_frame(payload)
     else:
         meta, rest = _decode_meta_ex(payload)
         # bytes are read-only: one copy makes them a buffer of our own.
         u8 = np.frombuffer(rest, dtype=np.uint8).copy()
-    if "codec" in meta:
-        from brpc_tpu_torch.runtime import codec as codec_mod
-
-        if note_name is not None:
-            nbytes = int(np.prod(meta["shape"], dtype=np.int64)
-                         ) * np.dtype(meta["dtype"]).itemsize
-            codec_mod.note(note_name, meta["codec"], nbytes, int(u8.nbytes))
-        with _stage("dequant"):
-            return _dequant_put_from_view(meta, u8, resolve_device(device),
-                                          codec_mod)
-    arr = u8.view(np.dtype(meta["dtype"])).reshape(tuple(meta["shape"]))
-    dev = resolve_device(device)
-    t = torch.from_numpy(arr)
-    # The owned buffer outlives the tensor and is never rewritten, so a
-    # CPU target keeps it; a CUDA target copies (blocking H2D).
-    return t if dev.type == "cpu" else _h2d(t, dev)
+    return _consume_oneside_body(meta, u8, resolve_device(device), note_name,
+                                 owned=True)
 
 
 class TensorView:

@@ -211,6 +211,61 @@ def test_wire_counters_count_each_copy_to_and_from_the_card(cuda):
         ps.stop()
 
 
+def test_oneside_pull_lands_in_a_pinned_buffer(cuda):
+    """A one-sided pull onto the card lands in the reader's page-locked
+    buffer and DMAs from there: bit for bit the RPC pull, one pinned read
+    a hit, the buffer reused without touching the tensors returned
+    before, and the profiler sees a pinned H2D."""
+    from brpc_tpu_torch.observability import metrics
+    from brpc_tpu_torch.runtime.param_server import (ParameterClient,
+                                                     ParameterServer)
+
+    rng = np.random.default_rng(22)
+    params = {"big": rng.standard_normal((1024, 1031)).astype(np.float32),
+              "small": rng.standard_normal((300, 257)).astype(np.float32)}
+    ps = ParameterServer(params, lr=0.05, momentum=0.8, device=cuda,
+                         oneside=True)
+    addr = f"tpu://127.0.0.1:{ps.start()}"
+    one = ParameterClient(addr, device=cuda, oneside=True)
+    rpc = ParameterClient(addr, device=cuda)
+    names = ("torch_oneside_pull_hits", "torch_oneside_pinned_reads",
+             "torch_oneside_pinned_fallbacks")
+    try:
+        before = {n: metrics.counter(n).value() for n in names}
+        _, big = one.pull("big")
+        landing = one._oneside_reader._landing
+        assert landing is not None and landing.is_pinned()
+        _, small = one.pull("small")
+        assert one._oneside_reader._landing.data_ptr() == landing.data_ptr()
+        for name, t in (("big", big), ("small", small)):
+            assert t.device.type == "cuda"
+            assert torch.equal(t, rpc.pull(name)[1])
+            assert torch.equal(t.cpu(), torch.from_numpy(params[name]))
+        # A push republishes "small"; reading it again through the same
+        # buffer leaves the tensors returned before as they were.
+        assert rpc.push_grad("small", torch.ones(300, 257, device=cuda)) == 1
+        v, small2 = one.pull("small")
+        assert v == 1 and torch.equal(small2, rpc.pull("small")[1])
+        assert not torch.equal(small2, small)
+        assert torch.equal(small.cpu(), torch.from_numpy(params["small"]))
+        assert torch.equal(big.cpu(), torch.from_numpy(params["big"]))
+        got = {n: metrics.counter(n).value() - before[n] for n in names}
+        assert got == {"torch_oneside_pull_hits": 3,
+                       "torch_oneside_pinned_reads": 3,
+                       "torch_oneside_pinned_fallbacks": 0}
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            one.pull("big")
+            torch.cuda.synchronize()
+        keys = [e.key for e in prof.key_averages()]
+        assert any("Memcpy HtoD (Pinned -> Device)" in k for k in keys), keys
+    finally:
+        one.close()
+        rpc.close()
+        ps.stop()
+
+
 def test_fleet_reshard_and_oneside_pull_on_the_card(cuda):
     """A 2-shard fleet on the card: pushes launch K1 on the shard, a live
     1 -> 2 reshard keeps the state equal to a plain replay, and an int8

@@ -617,3 +617,182 @@ def test_serving_kv_blocks_publishable_per_block(oneside_env):
         np.testing.assert_array_equal(blk[:v], k_rows[j * r:j * r + v])
     rd.close()
     mgr.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# The page-locked landing buffer (OnesideReader.read_to_device), with the
+# pinned allocation swapped for plain memory: the CPU has no pinned
+# allocator, and what is tested here is the reuse, not the pinning.
+# ---------------------------------------------------------------------------
+
+# Payload sizes growing past the first 2-MiB buffer (raw and int8 both),
+# then shrinking again.
+LANDING_SHAPES = [(16,), (64, 64), (300, 257), (1200, 2600), (300, 257),
+                  (64, 64), (16,)]
+
+
+def _landing_server(codec=None):
+    rng = np.random.default_rng(22)
+    params = {f"s{i}": rng.standard_normal(shape).astype(np.float32)
+              for i, shape in enumerate(LANDING_SHAPES[:4])}
+    srv = tps.ParameterServer(state_from_numpy(params, device="cpu"),
+                              oneside=True, oneside_codec=codec)
+    return srv, f"tpu://127.0.0.1:{srv.start()}", params
+
+
+def _plain_pins(monkeypatch):
+    """Swap the pinned allocation for plain memory -> the sizes asked."""
+    asked = []
+
+    def plain(nbytes):
+        asked.append(nbytes)
+        return torch.empty(nbytes, dtype=torch.uint8)
+
+    monkeypatch.setattr(ttensor, "_pinned_empty", plain)
+    return asked
+
+
+def _landing_order():
+    """The names of LANDING_SHAPES in read order (growing, shrinking)."""
+    index = {s: i for i, s in enumerate(LANDING_SHAPES[:4])}
+    return [f"s{index[s]}" for s in LANDING_SHAPES]
+
+
+@pytest.mark.parametrize("codec", [None, "int8"])
+def test_landing_buffer_reads_equal_read_np(oneside_env, monkeypatch,
+                                            codec):
+    """One reader, payloads growing then shrinking: every read through the
+    landing buffer equals read_np's decode of the same version, bit for
+    bit, raw and int8; the buffer grows only past its size (to the payload
+    plus 64 bytes, in 2-MiB steps), is reused from then on, and a later
+    read leaves the tensors returned before it intact."""
+    asked = _plain_pins(monkeypatch)
+    srv, _addr, _params = _landing_server(codec)
+    rd = ttensor.OnesideReader.map(srv._oneside_window.describe())
+    pinned = oneside_env["metrics"].counter("torch_oneside_pinned_reads")
+    try:
+        p0 = pinned.value()
+        got, ptrs = [], []
+        for name in _landing_order():
+            v, t = rd.read_to_device(name, "cpu")
+            assert v == 0
+            got.append((name, t))
+            ptrs.append(rd._landing.data_ptr())
+        assert pinned.value() == p0 + len(LANDING_SHAPES)
+        need = {n: rd.read_np(n)[1].nbytes for n, _ in got}
+        largest = max(need.values())
+        step = 2 << 20
+        assert asked == [step, -(-(largest + 64) // step) * step]
+        assert need[got[0][0]] + 64 <= step < largest + 64
+        assert len(set(ptrs[3:])) == 1  # grown once, at the largest
+        assert rd._landing.numel() == asked[-1]
+        for name, t in got:
+            _, owned = rd.read_np(name)
+            want = ttensor.consume_oneside_payload(owned, "cpu")
+            assert t.dtype == want.dtype and t.shape == want.shape
+            assert torch.equal(t, want)
+        if codec == "int8":
+            assert not torch.equal(got[3][1], torch.from_numpy(
+                _params[got[3][0]]))  # the codec engaged
+    finally:
+        rd.close()
+        srv.stop()
+    assert rd._landing is None  # released with the reader
+
+
+def test_landing_pin_failure_takes_read_np(oneside_env, monkeypatch):
+    """A pinned allocation that raises is tried once: that read and every
+    later one take read_np, count in torch_oneside_pinned_fallbacks (not
+    in _pinned_reads) and equal the RPC pull."""
+    calls = []
+
+    def refuse(nbytes):
+        calls.append(nbytes)
+        raise RuntimeError("no pinned memory here")
+
+    monkeypatch.setattr(ttensor, "_pinned_empty", refuse)
+    srv, addr, _params = _landing_server()
+    rpc = _client("torch", addr)
+    rd = ttensor.OnesideReader.map(srv._oneside_window.describe())
+    m = oneside_env["metrics"]
+    pinned = m.counter("torch_oneside_pinned_reads")
+    fallbacks = m.counter("torch_oneside_pinned_fallbacks")
+    try:
+        p0, f0 = pinned.value(), fallbacks.value()
+        for name in _landing_order():
+            v, t = rd.read_to_device(name, "cpu")
+            rv, rt = rpc.pull(name)
+            assert v == rv and torch.equal(t, rt)
+        assert len(calls) == 1 and rd._landing is None
+        assert fallbacks.value() == f0 + len(LANDING_SHAPES)
+        assert pinned.value() == p0
+        with pytest.raises(ttensor.OnesideMiss):
+            rd.read_to_device("nope", "cpu")
+    finally:
+        rd.close()
+        rpc.close()
+        srv.stop()
+
+
+def test_cpu_target_never_lands_in_the_pinned_buffer(oneside_env,
+                                                     monkeypatch):
+    """A client on the CPU reads one-sidedly through read_np: its tensors
+    keep their owned buffers, and no landing buffer is ever asked for."""
+    asked = _plain_pins(monkeypatch)
+    srv, addr, params = _landing_server()
+    one = _client("torch", addr, oneside=True)
+    hits, _ = _counters(oneside_env["metrics"])
+    pinned = oneside_env["metrics"].counter("torch_oneside_pinned_reads")
+    try:
+        h0, p0 = hits.value(), pinned.value()
+        got = one.pull_all()
+        v, t = one.pull("s1")
+        assert hits.value() == h0 + len(params) + 1
+        assert pinned.value() == p0 and asked == []
+        assert one._oneside_reader._landing is None
+        for name, (ver, x) in got.items():
+            assert ver == 0
+            np.testing.assert_array_equal(x.numpy(), params[name])
+        np.testing.assert_array_equal(t.numpy(), params["s1"])
+    finally:
+        one.close()
+        srv.stop()
+
+
+def test_landing_buffer_is_held_by_one_read_at_a_time(oneside_env,
+                                                      monkeypatch):
+    """Twelve threads read through one reader's landing buffer at once,
+    with the interpreter switching threads as often as it can: every value
+    equals its publication, so no read overwrote another's bytes before
+    they were copied out."""
+    import sys
+
+    _plain_pins(monkeypatch)
+    srv, _addr, params = _landing_server()
+    rd = ttensor.OnesideReader.map(srv._oneside_window.describe())
+    names = sorted(params)
+    bad, done = [], []
+
+    def reader(k):
+        for i in range(12):
+            name = names[(k + i) % len(names)]
+            _v, t = rd.read_to_device(name, "cpu")
+            if not np.array_equal(t.numpy(), params[name]):
+                bad.append(name)
+        done.append(k)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=reader, args=(k,))
+                   for k in range(12)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(interval)
+        rd.close()
+        srv.stop()
+    assert sorted(done) == list(range(12)) and bad == []
