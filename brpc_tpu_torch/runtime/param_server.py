@@ -52,13 +52,13 @@ from brpc_tpu_torch.runtime.tensor import (E_UNDECODABLE, OnesideGone,
                                            OnesideWindow, PipelineWindow,
                                            TensorArena, TensorChannel,
                                            WireTensor, _as_host_array,
-                                           _d2h, _dequant_widen,
+                                           _dequant_widen,
                                            _detach_device_put_batch,
                                            _device_put_from_view, _metrics,
                                            _stage, add_tensor_service,
                                            consume_oneside_payload,
-                                           consume_pull_reply, np_dtype,
-                                           pad_header64)
+                                           consume_pull_reply, d2h,
+                                           np_dtype, pad_header64)
 from brpc_tpu_torch.utils.device import resolve_device
 
 # App-level error codes, disjoint from trpc/errno.h (E_UNDECODABLE = 2044
@@ -588,8 +588,8 @@ class ParameterServer:
             view[len(header):] = data.reshape(-1)
         elif nbytes:
             # Raw: one D2H straight into the arena pages.
-            _d2h(p.detach().contiguous().reshape(-1).view(torch.uint8),
-                 torch.from_numpy(view[len(header):]))
+            d2h(p.detach().contiguous().reshape(-1).view(torch.uint8),
+                torch.from_numpy(view[len(header):]))
         try:
             win.publish(name, off, total, version)
         except (ValueError, RuntimeError):
@@ -876,15 +876,18 @@ class ParameterClient:
         self._srv_qos = None
         return self._reread_meta() and not self._srv_qos
 
-    def _codec_push_failed(self, e: "native.RpcError") -> None:
-        """A quantized push the server cannot decode: E_UNDECODABLE drops
-        the advertisement (the next call renegotiates); a generic internal
-        error — what a build that predates the codec answers — re-reads
-        it once, which heals only when the codec is gone."""
+    def note_push_error(self, e: "native.RpcError") -> None:
+        """What every push path runs on a refused push, once a call: an
+        overload answer feeds the pacer; a quantized push the server
+        cannot decode heals the codec advertisement — E_UNDECODABLE drops
+        it (the next call renegotiates), and a generic internal error
+        (what a build that predates the codec answers) re-reads it once,
+        which heals only when the codec is gone. The caller still
+        surfaces the failure."""
+        self.pacer.note(e)
         if e.code == E_UNDECODABLE:
             self._srv_codecs = None
-            return
-        if e.code == TRPC_EINTERNAL and self.negotiated_codec() is not None:
+        elif e.code == TRPC_EINTERNAL and self.negotiated_codec() is not None:
             self._reread_meta()
 
     def _pushq_failed(self, e: "native.RpcError") -> bool:
@@ -1017,9 +1020,23 @@ class ParameterClient:
         c = self.negotiated_codec()
         return name.encode() + (b"\x00" + c.encode() if c else b"")
 
+    def _encode_grad(self, name: str, host: np.ndarray, c: str):
+        """Quantize one eligible host gradient under codec ``c`` with error
+        feedback (compensate, encode, settle) and note it on the codec's
+        counters, as the ``encode`` stage -> the codec's encoding. Every
+        client-side gradient encode runs here, grouped or per tensor."""
+        with _stage("encode"):
+            x = self._ef.compensate(name, host)
+            # c is the caller's negotiated_codec(); this routine never
+            # chooses a codec.  tpulint: allow(negotiation)
+            e = codec_mod.encode(x, c)
+            self._ef.settle(name, x, e.dequantized())
+            codec_mod.note(name, c, e.logical_bytes, e.wire_bytes)
+        return e
+
     def _grad_encoder(self, name: str):
         """The per-tensor encoder for a quantized gradient push (None when
-        riding raw): error-feedback compensate, quantize, settle."""
+        riding raw), run at arena-stage time."""
         c = self.negotiated_codec()
         if c is None:
             self._ef.clear(name)
@@ -1029,10 +1046,7 @@ class ParameterClient:
             if not codec_mod.eligible(host):
                 self._ef.clear(name)  # nothing quantized, nothing owed
                 return None
-            x = self._ef.compensate(name, host)
-            e = codec_mod.encode(x, c)
-            self._ef.settle(name, x, e.dequantized())
-            codec_mod.note(name, c, e.logical_bytes, e.wire_bytes)
+            e = self._encode_grad(name, host, c)
             return e.wire, e.header
 
         return enc
@@ -1073,8 +1087,7 @@ class ParameterClient:
                     "ParamService/Push", grad, request=name.encode(),
                     encoder=self._grad_encoder(name))
         except native.RpcError as e:
-            self.pacer.note(e)
-            self._codec_push_failed(e)
+            self.note_push_error(e)
             if not self._qos_failed(e):
                 raise
             # A build without QoS: retry once, unstamped.
@@ -1083,6 +1096,19 @@ class ParameterClient:
                 encoder=self._grad_encoder(name))
         self.pacer.clear()
         return int(payload.decode())
+
+    def submit_push(self, win: PipelineWindow, name: str, grad) -> None:
+        """Start one gradient push in the caller's window ``win`` (over
+        this client's channel), tagged ``name``: stamped BULK, quantized
+        at arena-stage time when a codec is negotiated, its logical bytes
+        counted in ``torch_tensor_push_bytes``. The reply (the new
+        version) goes to the window's ``on_reply``; a refusal is the
+        caller's to hand to :meth:`note_push_error`."""
+        with self._qos_bulk():
+            win.submit("ParamService/Push", array=grad,
+                       request=name.encode(), tag=name,
+                       encoder=self._grad_encoder(name))
+        _metrics()["push_bytes"].add(int(grad.nbytes))
 
     # ---- live-resharding handshake (used by fleet.Migrator) ----
 
@@ -1334,64 +1360,57 @@ class ParameterClient:
         group_errs: List[native.RpcError] = []
 
         def on_error(tag, err):
-            self.pacer.note(err)
             if isinstance(tag, tuple):
                 group_errs.append(err)
             for n in (tag if isinstance(tag, tuple) else (tag,)):
                 per_name_err[n] = err
+
+        def note_refusals():
+            # Once a refused call: a group's error stands for its names.
+            for err in {id(e): e for e in per_name_err.values()}.values():
+                self.note_push_error(err)
 
         self.pacer.pace()
         try:
             with self._qos_bulk(), PipelineWindow(
                     self.channel, window, on_reply=on_reply,
                     on_error=on_error) as win:
-                if not use_group:
-                    for name, grad in grads.items():
-                        win.submit("ParamService/Push", array=grad,
-                                   request=name.encode(), tag=name,
-                                   encoder=self._grad_encoder(name))
-                        m["push_bytes"].add(int(grad.nbytes))
-                else:
-                    # Split by metadata (no D2H needed), then copy to the
-                    # host one group at a time: never a full host replica.
-                    grouped = [n for n in grads
-                               if codec_mod.eligible(grads[n])]
-                    gset = set(grouped)
-                    for name in grads:
-                        if name in gset:
-                            continue
-                        self._ef.clear(name)  # raw hop: nothing owed
-                        win.submit("ParamService/Push", array=grads[name],
-                                   request=name.encode(), tag=name)
-                        m["push_bytes"].add(int(grads[name].nbytes))
-                    for i in range(0, len(grouped), group):
-                        entries, blobs = [], []
-                        for n in grouped[i:i + group]:
-                            host = _as_host_array(grads[n])
-                            x = self._ef.compensate(n, host)
-                            e = codec_mod.encode(x, c)
-                            self._ef.settle(n, x, e.dequantized())
-                            codec_mod.note(n, c, e.logical_bytes,
-                                           e.wire_bytes)
-                            entries.append(
-                                {"name": n, "dtype": host.dtype.str,
-                                 "shape": list(host.shape),
-                                 "codec": c, "block": e.block})
-                            blobs.append(e.wire)
-                            m["push_bytes"].add(host.nbytes)
-                        manifest, concat = groupwire.pack_group(entries,
-                                                                blobs)
-                        win.submit("ParamService/PushQ", array=concat,
-                                   request=manifest,
-                                   tag=tuple(e["name"] for e in entries))
+                # Split by metadata (no D2H needed): the names the group
+                # packs, when grouping; every other name rides per tensor.
+                grouped = ([n for n in grads if codec_mod.eligible(grads[n])]
+                           if use_group else [])
+                gset = set(grouped)
+                for name, grad in grads.items():
+                    if name not in gset:
+                        self.submit_push(win, name, grad)
+                # Copy to the host one group at a time: never a full host
+                # replica.
+                for i in range(0, len(grouped), group):
+                    entries, blobs = [], []
+                    for n in grouped[i:i + group]:
+                        host = _as_host_array(grads[n])
+                        e = self._encode_grad(n, host, c)
+                        entries.append(
+                            {"name": n, "dtype": host.dtype.str,
+                             "shape": list(host.shape),
+                             "codec": c, "block": e.block})
+                        blobs.append(e.wire)
+                        m["push_bytes"].add(host.nbytes)
+                    manifest, concat = groupwire.pack_group(entries, blobs)
+                    win.submit("ParamService/PushQ", array=concat,
+                               request=manifest,
+                               tag=tuple(e["name"] for e in entries))
         except native.RpcError as e:
+            note_refusals()
             self.pacer.note(e)
             if versions:
                 raise PartialPushError(
                     e, dict(versions),
                     [n for n in grads if n not in versions]) from e
             raise
-        if group_errs and self._pushq_failed(group_errs[0]):
+        pushq_gone = bool(group_errs) and self._pushq_failed(group_errs[0])
+        note_refusals()
+        if pushq_gone:
             # A build without PushQ: the method is gone, the names are
             # fine — re-push the unconfirmed ones per tensor and merge.
             rem = {n: grads[n] for n in grads if n not in versions}
@@ -1409,10 +1428,8 @@ class ParameterClient:
                 raise
             return versions
         if per_name_err:
-            # Per-name refusals (moved mid-reshard, undecodable): the
-            # stale-advertisement heal runs as a per-tensor push's would.
-            for err in per_name_err.values():
-                self._codec_push_failed(err)
+            # Per-name refusals (moved mid-reshard, undecodable), noted
+            # above as a per-tensor push's would be.
             cause = next(iter(per_name_err.values()))
             raise PartialPushError(
                 cause, dict(versions),

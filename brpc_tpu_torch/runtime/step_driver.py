@@ -8,7 +8,7 @@ into per-tensor nodes
     push:k  -> opt:k -> pull:k (the ``wire:pull`` lane)
 
 scheduled by :mod:`step_sched`, so the gradient push of layer k (int8
-encode included — the client's ``encoder=`` hook runs at arena-stage time
+encode included — ``client.submit_push`` quantizes at arena-stage time
 on the wire lane) overlaps backward compute of the next layer, and the
 confirm and next-step pull of layer k overlap the backward and the
 pushes of the layers below it (the JAX package runs the three on one
@@ -65,8 +65,7 @@ from brpc_tpu_torch.runtime.param_server import PartialPushError
 from brpc_tpu_torch.runtime.state import to_tensor
 from brpc_tpu_torch.runtime.step_sched import (COMPUTE, WIRE, StepFailure,
                                                StepGraph, run_graph)
-from brpc_tpu_torch.runtime.tensor import PipelineWindow, _d2h
-from brpc_tpu_torch.runtime.tensor import _metrics as _tensor_metrics
+from brpc_tpu_torch.runtime.tensor import PipelineWindow, d2h
 
 _metrics_cache = None
 
@@ -77,13 +76,13 @@ _STAT_KEYS = ("wall_ms", "compute_ms", "wire_busy_ms", "exposed_comm_ms",
               "overlapped_comm_ms")
 
 
-def _trace_handoff_ctx(tid: int, sid: int, qos=None, stream=None):
+def _trace_handoff_ctx(tid: int, sid: int, stream=None):
     """The wire-lane context factory both drivers hand to ``run_graph``:
-    each lane's thread inherits the step's rpcz trace context, the BULK
-    QoS stamp when ``qos`` (a zero-arg context-manager factory) is given,
-    and its lane's CUDA stream when ``stream`` (``LaneStreams.ctx``) is.
-    Restore, don't clear, on exit: in serial mode this wraps the CALLER's
-    own thread, whose ambient context must survive the step."""
+    each lane's thread inherits the step's rpcz trace context, and its
+    lane's CUDA stream when ``stream`` (``LaneStreams.ctx``) is given.
+    QoS is not the lane's: the client and the collective stamp their own
+    calls. Restore, don't clear, on exit: in serial mode this wraps the
+    CALLER's own thread, whose ambient context must survive the step."""
 
     @contextlib.contextmanager
     def wire_ctx():
@@ -91,10 +90,9 @@ def _trace_handoff_ctx(tid: int, sid: int, qos=None, stream=None):
         if tid:
             tracing.set_trace(tid, sid)
         try:
-            with (qos() if qos is not None else contextlib.nullcontext()):
-                with (stream() if stream is not None
-                      else contextlib.nullcontext()):
-                    yield
+            with (stream() if stream is not None
+                  else contextlib.nullcontext()):
+                yield
         finally:
             if tid:
                 if had_t or had_s:
@@ -225,18 +223,6 @@ class OverlappedStepDriver(_Recorder):
             self._raw[name] = arr
             self.versions[name] = version
 
-    def _note_push_error(self, e: "native.RpcError") -> None:
-        """The push-side healing every other push path runs on RpcError:
-        overload answers feed the client's pacer, and an undecodable-push
-        answer drops the stale codec advertisement so the NEXT step
-        renegotiates. The step still surfaces its failure."""
-        pacer = getattr(self.client, "pacer", None)
-        if pacer is not None:
-            pacer.note(e)
-        heal = getattr(self.client, "_codec_push_failed", None)
-        if heal is not None:
-            heal(e)
-
     # ---- one step ----
 
     def step(self, x, y) -> float:
@@ -265,9 +251,6 @@ class OverlappedStepDriver(_Recorder):
 
         win = (PipelineWindow(channel, self.window, on_reply=on_push_reply)
                if channel is not None else None)
-        # PipelineWindow.submit counts no bytes itself: account per
-        # submit, as push_all does.
-        push_bytes = _tensor_metrics()["push_bytes"]
 
         def fn_forward(done):
             # Forward order on every rank: a mesh harness's place is a
@@ -292,44 +275,34 @@ class OverlappedStepDriver(_Recorder):
         def drain_one_recording() -> bool:
             """One complete_one() with per-tag failure recording — the
             single home of the drain discipline, so a failed reply is
-            always attributed to ITS tag and the healing hooks run."""
+            always attributed to ITS tag and the client's push-side heal
+            runs (the step still surfaces the failure)."""
             try:
                 return win.complete_one()
             except Exception as e:  # noqa: BLE001 — ANY reply failure
                 tag = getattr(e, "pipeline_tag", None)
                 push_failed.setdefault(tag if tag is not None else "?", e)
                 if isinstance(e, native.RpcError):
-                    self._note_push_error(e)
+                    self.client.note_push_error(e)
                 return True
             finally:
                 with landed:
                     landed.notify_all()
 
         def make_push(name):
-            if win is not None:
-                def fn(done):
-                    # Drain a full window HERE (recording per tag), not
-                    # inside submit: submit's internal drain would raise
-                    # an EARLIER push's reply error out of THIS node.
-                    while win.inflight() >= win.window:
-                        if not drain_one_recording():
-                            break
-                    enc = self.client._grad_encoder(name)
-                    if enc is not None:
-                        enc = _staged_encode(enc)
-                    g = grads[name]
-                    handoff.adopt(g)
-                    win.submit("ParamService/Push", array=g,
-                               request=name.encode(), tag=name,
-                               encoder=enc)
-                    push_bytes.add(g.numel() * g.element_size())
+            def fn(done):
+                if win is None:
+                    step_versions[name] = self.client.push_grad(
+                        name, handoff.adopt(grads[name]))
                     return None
-            else:
-                def fn(done):
-                    g = grads[name]
-                    handoff.adopt(g)
-                    step_versions[name] = self.client.push_grad(name, g)
-                    return None
+                # Drain a full window HERE (recording per tag), not inside
+                # submit: submit's internal drain would raise an EARLIER
+                # push's reply error out of THIS node.
+                while win.inflight() >= win.window:
+                    if not drain_one_recording():
+                        break
+                self.client.submit_push(win, name, handoff.adopt(grads[name]))
+                return None
             return fn
 
         def make_opt(name):
@@ -399,8 +372,7 @@ class OverlappedStepDriver(_Recorder):
         with tracing.trace_span("train_step"):
             tid, sid = tracing.current_trace()
             wire_ctx = _trace_handoff_ctx(
-                tid, sid, qos=getattr(self.client, "_qos_bulk", None),
-                stream=self._lanes.ctx if self.overlap else None)
+                tid, sid, stream=self._lanes.ctx if self.overlap else None)
             try:
                 _results, trace = run_graph(graph, overlap=self.overlap,
                                             wire_ctx=wire_ctx)
@@ -582,7 +554,7 @@ class CollectiveStepDriver(_Recorder):
         def host_grad(name) -> np.ndarray:
             g = grads[name]
             handoff.adopt(g)
-            return _d2h(g.detach()).numpy()  # D2H on the wire lane
+            return d2h(g.detach()).numpy()  # D2H on the wire lane
 
         def make_allreduce(name):
             def fn(done):
@@ -660,8 +632,6 @@ class CollectiveStepDriver(_Recorder):
 
         with tracing.trace_span("train_step"):
             tid, sid = tracing.current_trace()
-            # No qos factory: the collective stamps its own BULK QoS per
-            # peer inside the hop sends.
             wire_ctx = _trace_handoff_ctx(
                 tid, sid,
                 stream=self._lanes.ctx if self.overlap else None)
@@ -684,14 +654,3 @@ class CollectiveStepDriver(_Recorder):
 
     def run(self, batches) -> List[float]:
         return [self.step(x, y) for x, y in batches]
-
-
-def _staged_encode(enc):
-    """Wrap a gradient encoder so its quantize cost shows as an
-    ``encode`` stage on the push node's span — running at arena-stage
-    time on the wire lane, i.e. inside the next layer's compute shadow."""
-
-    def run(host):
-        with tracing.stage("encode"):
-            return enc(host)
-    return run

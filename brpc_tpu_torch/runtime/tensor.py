@@ -31,7 +31,7 @@ Device edges and their hazards:
     every handler thread, so a pull's D2H is ordered after the push
     kernel that produced the tensor.
   * Every copy between host pages and a CUDA device goes through
-    ``_h2d`` / ``_d2h``: the ``h2d`` / ``d2h`` stages and the
+    ``h2d()`` / ``d2h()``: the stages of the same names and the
     ``torch_wire_h2d_bytes`` / ``torch_wire_d2h_bytes`` counters.
 """
 
@@ -241,7 +241,7 @@ def _metrics():
                 # by the wire (the reference-drain backpressure signal).
                 "wait_stalls": obs.counter("torch_tensor_arena_wait_stalls"),
                 # Bytes of the copies between host pages and a CUDA
-                # device (_h2d / _d2h); their time is the h2d / d2h
+                # device (h2d() / d2h()); their time is the h2d / d2h
                 # stages'.
                 "h2d_bytes": obs.counter("torch_wire_h2d_bytes"),
                 "d2h_bytes": obs.counter("torch_wire_d2h_bytes"),
@@ -311,7 +311,7 @@ class WireTensor:
         self.placed = placed
 
 
-def _h2d(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+def h2d(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     """The wire's one H2D: a blocking copy of host tensor ``t`` onto CUDA
     ``device``, as the ``h2d`` stage, its bytes in
     ``torch_wire_h2d_bytes``."""
@@ -321,8 +321,8 @@ def _h2d(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return out
 
 
-def _d2h(src: torch.Tensor, dst: Optional[torch.Tensor] = None
-         ) -> torch.Tensor:
+def d2h(src: torch.Tensor, dst: Optional[torch.Tensor] = None
+        ) -> torch.Tensor:
     """The wire's one D2H: a blocking copy of ``src`` into host tensor
     ``dst`` (a new one when None), returned. From a CUDA tensor it is the
     ``d2h`` stage, its bytes in ``torch_wire_d2h_bytes``; from a CPU one a
@@ -340,7 +340,7 @@ def _as_host_array(x) -> np.ndarray:
     """torch tensor -> host ndarray (one D2H copy for a CUDA tensor, a
     shared view for a contiguous CPU one); ndarray passes through."""
     if isinstance(x, torch.Tensor):
-        return _d2h(x.detach().contiguous()).numpy()
+        return d2h(x.detach().contiguous()).numpy()
     return np.asarray(x)
 
 
@@ -353,7 +353,7 @@ def _device_put_from_view(arr: np.ndarray, device: torch.device
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if device.type == "cpu":
         return t.clone()
-    return _h2d(t, device)
+    return h2d(t, device)
 
 
 def _detach_device_put_batch(parts, device: torch.device) -> list:
@@ -440,7 +440,7 @@ class TensorArena:
             nbytes = t.numel() * t.element_size()
             off = self.alloc(nbytes)
             view = self.view(off, nbytes)
-            _d2h(t.reshape(-1).view(torch.uint8), torch.from_numpy(view))
+            d2h(t.reshape(-1).view(torch.uint8), torch.from_numpy(view))
             return off, nbytes, view.view(dt).reshape(tuple(t.shape))
         host = np.asarray(array)
         if host.nbytes == 0:
@@ -981,25 +981,14 @@ class PipelineWindow:
     def submit(self, service_method: str, array=None, request: bytes = b"",
                tag=None, encoder=None) -> None:
         """Stage ``array`` (optional) into the channel arena and start the
-        RPC; blocks only while the window is full. ``encoder(host) ->
-        (wire_uint8, header_bytes) | None`` quantizes at stage time; None
-        rides raw."""
+        RPC; blocks only while the window is full. ``encoder`` is
+        :meth:`TensorChannel.stage_payload`'s."""
         while len(self._q) >= self.window:
             self.complete_one()
         off = length = 0
         if array is not None:
-            with _stage("arena_stage"):
-                enc = None
-                if encoder is not None:
-                    array = _as_host_array(array)
-                    enc = encoder(array)
-                if enc is None:
-                    off, length, host = self.channel.arena.place(array)
-                    request = _encode_meta(host) + request
-                else:
-                    wire, header = enc
-                    off, length, _ = self.channel.arena.place(wire)
-                    request = header + request
+            off, length, header = self.channel.stage_payload(array, encoder)
+            request = header + request
         try:
             fut = self.channel.call_async(service_method, request, off,
                                           length)
@@ -1159,8 +1148,8 @@ class TensorChannel:
         (or nothing)."""
         off = length = 0
         if array is not None:
-            off, length, host = self.place_with_meta(array)
-            request = _encode_meta(host) + request
+            off, length, header = self.stage_payload(array)
+            request = header + request
         try:
             payload, view = self.call_raw(service_method, request, off,
                                           length)
@@ -1184,6 +1173,24 @@ class TensorChannel:
         host array whose ``_encode_meta`` header describes the bytes)."""
         return self.arena.place(array)
 
+    def stage_payload(self, array, encoder=None) -> Tuple[int, int, bytes]:
+        """Stage a tensor's or array's bytes into this channel's arena as
+        the ``arena_stage`` stage -> ``(off, length, header)``, the header
+        to put in front of the request. ``encoder(host) -> (wire_uint8,
+        header_bytes) | None`` quantizes a host copy at stage time; None
+        stages the host copy raw under its dtype/shape header. Every
+        request payload this channel sends stages here."""
+        with _stage("arena_stage"):
+            if encoder is not None:
+                array = _as_host_array(array)
+                enc = encoder(array)
+                if enc is not None:
+                    wire, header = enc
+                    off, length, _ = self.arena.place(wire)
+                    return off, length, header
+            off, length, host = self.arena.place(array)
+            return off, length, _encode_meta(host)
+
     def pull_device(self, service_method: str, request: bytes,
                     device: torch.device, note_name: Optional[str] = None):
         """Fetch a tensor onto ``device`` STRAIGHT from the received view,
@@ -1201,20 +1208,12 @@ class TensorChannel:
     def push_device(self, service_method: str, array,
                     request: bytes = b"", encoder=None) -> bytes:
         """Send a tensor (D2H into the arena, by reference on the wire) and
-        wait for the reply. ``encoder`` is ``PipelineWindow.submit``'s
-        per-tensor hook."""
+        wait for the reply. ``encoder`` is :meth:`stage_payload`'s. The
+        push counts its logical bytes, encoded or not, in
+        ``torch_tensor_push_bytes``."""
         t0 = time.monotonic()
-        with _stage("arena_stage"):
-            enc = None
-            if encoder is not None:
-                array = _as_host_array(array)
-                enc = encoder(array)
-            if enc is None:
-                off, length, host = self.arena.place(array)
-                header = _encode_meta(host)
-            else:
-                wire, header = enc
-                off, length, _ = self.arena.place(wire)
+        nbytes = int(array.nbytes)
+        off, length, header = self.stage_payload(array, encoder)
         try:
             with _stage("rpc"):
                 payload, view = self.call_raw(
@@ -1222,7 +1221,7 @@ class TensorChannel:
             view.release()
             m = _metrics()
             m["push"].record_s(time.monotonic() - t0)
-            m["push_bytes"].add(length)
+            m["push_bytes"].add(nbytes)
             return payload
         finally:
             if length:

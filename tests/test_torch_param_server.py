@@ -205,6 +205,35 @@ def test_partial_pull_and_push_errors_keep_the_survivors():
         ps.stop()
 
 
+@pytest.mark.parametrize("path", ["push_grad", "push_all", "push_all_q"],
+                         ids=["push_grad", "push_all-per-tensor",
+                              "push_all-grouped"])
+def test_each_eligible_gradient_counts_one_encode(path):
+    """Every client-side gradient encode is the ``encode`` stage: one
+    call per eligible gradient (w_a, w_b) and none for the ones riding
+    raw, whether the gradient rides alone or in a PushQ group."""
+    from brpc_tpu_torch.observability import metrics
+
+    ps, port = _start_server("torch")
+    cl = _client("torch", port, codec="int8")
+    grads = {k: _grad("torch", a) for k, a in GRADS[0].items()}
+    calls = metrics.counter("torch_stage_encode_calls")
+    try:
+        assert cl.negotiated_codec() == "int8" and cl._srv_pushq
+        before = calls.value()
+        if path == "push_grad":
+            versions = {k: cl.push_grad(k, g) for k, g in grads.items()}
+        else:
+            versions = cl.push_all(grads, group=8 if path == "push_all_q"
+                                   else 1)
+        added = calls.value() - before
+    finally:
+        cl.close()
+        ps.stop()
+    assert versions == {k: 1 for k in SHAPES}
+    assert added == 2
+
+
 def test_native_library_links_libstdcxx_dynamically(tmp_path):
     # The port shares one process with torch, so it only loads a library
     # that takes libstdc++ from the process; a statically linked one is not.

@@ -474,6 +474,112 @@ def test_rpcz_shows_push_inside_compute_shadow(drv_env):
 
 
 # ---------------------------------------------------------------------------
+# The push seam: every push path is the client's.
+# ---------------------------------------------------------------------------
+
+_PORT_INTERNALS = ("brpc_tpu_torch.runtime.tensor",
+                   "brpc_tpu_torch.runtime.param_server")
+
+
+def test_driver_reads_only_the_clients_public_surface():
+    """The step driver drives and does not push: it reads no
+    ``_``-member of its client (attribute or ``getattr``) and imports no
+    ``_``-name from the wire or the parameter server (read with ``ast``)."""
+    import ast
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "brpc_tpu_torch", "runtime",
+        "step_driver.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+
+    def is_client(n):
+        return (isinstance(n, ast.Attribute) and n.attr == "client"
+                and isinstance(n.value, ast.Name) and n.value.id == "self")
+
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module in _PORT_INTERNALS:
+            found += [a.name for a in node.names if a.name.startswith("_")]
+        elif isinstance(node, ast.Import):
+            assert not any(a.name in _PORT_INTERNALS for a in node.names)
+        elif (isinstance(node, ast.Attribute) and is_client(node.value)
+              and node.attr.startswith("_")):
+            found.append(f"client.{node.attr}")
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", None) == "getattr"
+              and len(node.args) >= 2 and is_client(node.args[0])
+              and isinstance(node.args[1], ast.Constant)
+              and str(node.args[1].value).startswith("_")):
+            found.append(f"getattr(client, {node.args[1].value!r})")
+    assert found == []
+
+
+def _meta_without_pushq(cl):
+    """Make ``cl`` read the server's Meta without the PushQ
+    advertisement: a server with the codec and no grouped pushes."""
+    import json
+
+    real = cl.channel.call
+
+    def call(method, *a, **k):
+        payload, arr = real(method, *a, **k)
+        if method == "ParamService/Meta":
+            doc = json.loads(payload.decode())
+            doc.pop("pushq", None)
+            payload = json.dumps(doc).encode()
+        return payload, arr
+
+    cl.channel.call = call
+    cl.meta()
+
+
+@pytest.mark.parametrize(
+    "path,codec",
+    [("push_grad", "int8"), ("push_all", None), ("push_all", "int8"),
+     ("push_all_no_pushq", "int8"), ("driver", "int8")],
+    ids=["push_grad-int8", "push_all-raw", "push_all-int8-grouped",
+         "push_all-int8-no-pushq", "driver-int8"])
+def test_every_push_path_counts_logical_bytes(drv_env, path, codec):
+    """One step's gradients, pushed through each path, add the same bytes
+    to ``torch_tensor_push_bytes``: their logical fp32 bytes, quantized
+    or not (the layers of SIZES are 3 KB, 4 KB and 2 KB, so int8 groups
+    one and sends two raw)."""
+    from brpc_tpu_torch.observability import metrics
+    from brpc_tpu_torch.runtime.step_driver import OverlappedStepDriver
+
+    params, batches = _jax_init(SIZES)
+    ps, cl, h = _torch_pair(params, codec)
+    x, y = (torch.tensor(a) for a in batches[0])
+    ctx = h.forward({n: torch.tensor(params[n]) for n in h.names}, x, y)
+    grads = {n: h.backward(ctx, n) for n in reversed(h.names)}
+    counter = metrics.counter("torch_tensor_push_bytes")
+    try:
+        if path == "push_all_no_pushq":
+            _meta_without_pushq(cl)
+        if codec is not None:
+            assert cl.negotiated_codec() == codec
+            assert cl._srv_pushq == (path != "push_all_no_pushq")
+        before = counter.value()
+        if path == "push_grad":
+            versions = {n: cl.push_grad(n, g) for n, g in grads.items()}
+        elif path == "driver":
+            d = OverlappedStepDriver(cl, h, overlap=True, window=4)
+            d.prime()
+            before = counter.value()
+            d.step(x, y)
+            versions = d.versions
+        else:
+            versions = cl.push_all(grads, window=4)
+        added = counter.value() - before
+    finally:
+        _close(cl, ps)
+    assert versions == {n: 1 for n in h.names}
+    assert added == sum(a.nbytes for a in params.values())
+
+
+# ---------------------------------------------------------------------------
 # The server in a process of its own.
 # ---------------------------------------------------------------------------
 
