@@ -52,9 +52,11 @@ and backward each run inside one stage: ``mla_attn``, ``moe_route``
 ``torch_moe_held_max_tokens`` (the busiest held expert's tokens) count
 every MoE layer's forward.
 
-fp32 throughout; the caller turns TF32 off. On CUDA the attention core is
-``scaled_dot_product_attention`` on its memory-efficient backend (it takes
-fp32 and a value width other than the query's).
+fp32 throughout; the caller turns TF32 off. The attention core is
+``ops/mla_attention.attention``: on CUDA at the widths it is built for
+(query-key 192, value 128) a hand-written fp32 forward and backward in
+3xTF32, else ``scaled_dot_product_attention`` (its memory-efficient
+backend on CUDA, its math path on the CPU).
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ import torch
 import torch.nn.functional as F
 
 from brpc_tpu_torch.observability import metrics, tracing
+from brpc_tpu_torch.ops import mla_attention
 from brpc_tpu_torch.utils.device import resolve_device
 
 _ATTN = ("input_layernorm", "self_attn.q_proj",
@@ -114,18 +117,6 @@ def rope_interleaved(x: torch.Tensor, cos: torch.Tensor,
     x = x.reshape(*lead, d // 2, 2).transpose(-1, -2).reshape(*lead, d)
     x1, x2 = x[..., :d // 2], x[..., d // 2:]
     return x * cos + torch.cat([-x2, x1], dim=-1) * sin
-
-
-def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               scale: float) -> torch.Tensor:
-    if q.device.type != "cuda":
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              scale=scale)
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              scale=scale)
 
 
 def _leaf(t: torch.Tensor) -> torch.Tensor:
@@ -300,7 +291,7 @@ class MLAMoEStack:
             qs = torch.cat([q_nope, rope_interleaved(q_rot, cos, sin)],
                            dim=-1)
             ks = torch.cat([k_nope, k_rot.expand(b, hd, s, dr)], dim=-1)
-            o = _attention(qs, ks, v, (dn + dr) ** -0.5)
+            o = mla_attention.attention(qs, ks, v, (dn + dr) ** -0.5)
             a = o.transpose(1, 2).reshape(b * s, hd * dv)
         a_in = _leaf(a)
         out = xin + a_in @ w_o

@@ -19,7 +19,12 @@ checkout. Phases, each fatal on failure:
      library call where one computes the same function (K2 int8's,
      ``codes.view(nb, block) * scale.view(nb, 1)``, held bit for bit);
      K1 in fp16 and bf16 at wte (and a ragged and an unaligned shape), bit
-     for bit, timed beside ``torch._fused_sgd_`` on the same dtype;
+     for bit, timed beside ``torch._fused_sgd_`` on the same dtype; the
+     MLA attention pair (the port's own fp32 forward and backward, query-
+     key width 192, value 128, causal) against float64 plain attention at
+     small ragged shapes and against its plain fp32 version at the MLA +
+     MoE stack's layer (2 x 16 x 8192), both passes timed beside SDPA's
+     memory-efficient fp32 pair and the 3xTF32 bound;
   3. the parameter-server path: a ParameterServer on the card holding the
      GPT-2 small parameter set (124,439,808 fp32 values, random from
      --seed) serves pulls and int8 pushes over tpu:// to clients in this
@@ -861,6 +866,173 @@ def _flash_build_report() -> str:
                 f"d<={d} {b} B" for d, b in smem_tc.items()))
 
 
+# ---------------------------------------------------------------- phase 2, MLA
+
+# The MLA + MoE stack's attention layer (benchmark/configs/moonlight-16b-
+# a3b-ep8.json: 16 heads, query-key width 128 + 64, value width 128) at the
+# cell's batch and context: 2 sequences of 8192 positions, causal, fp32.
+MLA_LAYER = {"b": 2, "h": 16, "s": 8192}
+# The MLA pair against plain attention, each tensor's largest error over
+# its largest reference value: 1e-5 against float64 at small ragged shapes
+# (the CPU emulation of the kernels' arithmetic reads up to 5.5e-7, plain
+# TF32 from 5.6e-5: tests/test_torch_mla_attn.py), 2e-5 against the plain
+# fp32 version at the layer (both fp32 over 8192-key sums).
+MLA_TOL = {"f64": 1e-5, "f32": 2e-5}
+
+
+def _mla_inputs(b, h, s, seed):
+    """q, k [b, h, s, 192], v [b, h, s, 128] as models/mla_moe.py lays
+    them out (v a view of the latent up-projection's output), and do."""
+    import torch
+
+    from brpc_tpu_torch.ops import mla_attention as mla
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *sh: torch.randn(*sh, generator=g, device="cuda")  # noqa: E731
+    v = mk(b, s, h, 128 + mla.DV).transpose(1, 2).split([128, mla.DV],
+                                                        dim=-1)[1]
+    return mk(b, h, s, mla.DQK), mk(b, h, s, mla.DQK), v, mk(b, h, s, mla.DV)
+
+
+def _mla_plain(q, k, v, do, scale, dtype, heads):
+    """(o, lse, dq, dk, dv) of plain attention in ``dtype``, ``heads``
+    heads at a time (the score matrix whole)."""
+    import torch
+
+    from brpc_tpu_torch.ops import mla_attention as mla
+
+    parts = []
+    for h0 in range(0, q.shape[1], heads):
+        sl = slice(h0, h0 + heads)
+        leaves = [t[:, sl].to(dtype).requires_grad_() for t in (q, k, v)]
+        o, lse = mla.reference(*leaves, scale)
+        parts.append((o.detach(), lse.detach(),
+                      *torch.autograd.grad(o, leaves, do[:, sl].to(dtype))))
+    return [torch.cat(ts, dim=1) for ts in zip(*parts)]
+
+
+def _mla_errs(got, want) -> dict:
+    return {n: ((a.double() - b.double()).abs().max()
+                / b.double().abs().max()).item()
+            for n, a, b in zip(("o", "lse", "dq", "dk", "dv"), got, want)}
+
+
+def mla_vs_plain(seed: int, tf32_rate: float) -> list:
+    """The MLA pair (brpc_mla_attn_fwd, brpc_mla_attn_bwd) against plain
+    attention, and both passes timed at the stack's layer beside SDPA's
+    memory-efficient fp32 pair, the plain version, and the bound: 640 FLOP
+    a legal (query, key) pair and head forward, 1664 backward (q.k^T at
+    192, p.v and do.v^T at 128 forward; q.k^T, do.v^T, p^T.do, ds^T.q and
+    ds.k backward), three TF32 products for each at the dense TF32
+    peak."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from brpc_tpu_torch.ops import mla_attention as mla
+
+    scale = mla.DQK ** -0.5
+    worst = {}
+    for shape in ((1, 2, 200), (2, 3, 77), (1, 1, 129), (1, 2, 300)):
+        q, k, v, do = _mla_inputs(*shape, seed + sum(shape))
+        if not mla.takes(q, k, v):
+            fail(f"MLA {shape}: the kernels do not take the model's layout")
+        o, lse = mla.forward_kernel(q, k, v, scale)
+        got = (o, lse, *mla.backward_kernel(q, k, v, o, lse, do, scale))
+        err = _mla_errs(got, _mla_plain(q, k, v, do, scale, torch.float64,
+                                        shape[1]))
+        log(f"MLA b{shape[0]} h{shape[1]} s{shape[2]} vs float64: "
+            + ", ".join(f"{n} {e:.3g}" for n, e in err.items()))
+        if max(err.values()) > MLA_TOL["f64"]:
+            fail(f"MLA {shape}: the kernels disagree with float64 beyond "
+                 f"{MLA_TOL['f64']}")
+        worst = {n: max(e, worst.get(n, 0.0)) for n, e in err.items()}
+    b, h, s = (MLA_LAYER[x] for x in ("b", "h", "s"))
+    q, k, v, do = _mla_inputs(b, h, s, seed)
+    o, lse = mla.forward_kernel(q, k, v, scale)
+    grads = mla.backward_kernel(q, k, v, o, lse, do, scale)
+    want = _mla_plain(q, k, v, do, scale, torch.float32, 2)
+    err = _mla_errs((o, lse, *grads), want)
+    del want
+    log("MLA layer vs its plain fp32 version: " + ", ".join(
+        f"{n} {e:.3g}" for n, e in err.items()))
+    if max(err.values()) > MLA_TOL["f32"]:
+        fail(f"MLA layer: the kernels disagree with the plain version "
+             f"beyond {MLA_TOL['f32']}")
+    # Heads 0-1 of the first sequence against float64: the kernels, SDPA's
+    # pair and the plain fp32 version, for the record.
+    sl = (slice(0, 1), slice(0, 2))
+    part = [t[sl] for t in (q, k, v, do)]
+    f64 = _mla_plain(*part, scale, torch.float64, 2)
+    leaves = [t.detach().clone().requires_grad_() for t in part[:3]]
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        so = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                            scale=scale)
+    sdpa = (so.detach(), f64[1].float(),
+            *torch.autograd.grad(so, leaves, part[3]))
+    for label, got in (("kernels", (o[sl], lse[sl], *(g[sl] for g in grads))),
+                       ("SDPA", sdpa),
+                       ("plain fp32", _mla_plain(*part, scale, torch.float32,
+                                                 2))):
+        log(f"MLA layer heads 0-1 vs float64, {label}: " + ", ".join(
+            f"{n} {e:.3g}" for n, e in _mla_errs(got, f64).items()
+            if not (label == "SDPA" and n == "lse")))
+    del f64, sdpa, so, leaves, part
+    pairs = b * h * s * (s + 1) / 2
+    bound = {"fwd": 640 * pairs / (tf32_rate / 3) * 1e3,
+             "bwd": 1664 * pairs / (tf32_rate / 3) * 1e3}
+    qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        so = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                            scale=scale)
+        lib = {"fwd": cuda_ms(lambda: F.scaled_dot_product_attention(
+                   qq, kk, vv, is_causal=True, scale=scale), reps=5, inner=2),
+               "bwd": cuda_ms(lambda: torch.autograd.grad(
+                   so, (qq, kk, vv), do, retain_graph=True), reps=5,
+                   inner=2)}
+    del so, qq, kk, vv
+    ms = {"fwd": cuda_ms(lambda: mla.forward_kernel(q, k, v, scale), reps=5,
+                         inner=2),
+          "bwd": cuda_ms(lambda: mla.backward_kernel(q, k, v, o, lse, do,
+                                                     scale), reps=5, inner=2)}
+
+    def plain_fwd():
+        for h0 in range(0, h, 2):
+            mla.reference(q[:, h0:h0 + 2], k[:, h0:h0 + 2], v[:, h0:h0 + 2],
+                          scale)
+
+    plain = {"fwd": cuda_ms(plain_fwd, reps=3, inner=1, warm=1),
+             "bwd": cuda_ms(lambda: _mla_plain(q, k, v, do, scale,
+                                               torch.float32, 2),
+                            reps=3, inner=1, warm=1)}
+    plain["bwd"] = max(plain["bwd"] - plain["fwd"], 0.0)
+    rows = []
+    for kind, what in (("fwd", "forward: o and each row's log-sum-exp"),
+                       ("bwd", "backward: D, then dq, dk, dv")):
+        flop = (640 if kind == "fwd" else 1664) * pairs
+        log(f"MLA {kind} at the layer: kernel_ms={ms[kind]:.4f} "
+            f"plain_ms={plain[kind]:.4f} bound_ms={bound[kind]:.4f} "
+            f"(operations, 3xTF32 at {tf32_rate / 1e12:.0f} TFLOP/s) "
+            f"library_ms(SDPA efficient)={lib[kind]:.4f}; "
+            f"{flop / ms[kind] / 1e9:.1f} TFLOP/s, "
+            f"{bound[kind] / ms[kind]:.1%} of the bound")
+        rows.append({"name": f"brpc_mla_attn_{kind}", "ported": False,
+                     "route": "cuda",
+                     "source": "brpc_tpu_torch/ops/csrc/mla_attention.cu",
+                     "replaces": None, "what": what,
+                     "library": "scaled_dot_product_attention, memory-"
+                                "efficient backend, fp32",
+                     "launches": None,
+                     "max_abs_err": max(worst[n] for n in (
+                         ("o", "lse") if kind == "fwd" else
+                         ("dq", "dk", "dv"))),
+                     "ms": ms[kind], "plain_ms": plain[kind],
+                     "bound_ms": bound[kind], "bound_by": "operations",
+                     "library_ms": lib[kind], "flop": flop,
+                     "shape": f"b{b} h{h} s{s} qk 192 v 128 fp32 causal"})
+    return rows
+
+
 # ---------------------------------------------------------------- phase 3
 
 def main_path(seed: int) -> dict:
@@ -1088,6 +1260,7 @@ def _replay_step(state, x, target):
 def _counts() -> dict:
     from brpc_tpu_torch.ops import flash_attention as fa
     from brpc_tpu_torch.ops import fused_update as fu
+    from brpc_tpu_torch.ops import mla_attention as mla
     from brpc_tpu_torch.ops import quantize as qz
 
     return {"brpc_fused_momentum": fu.LAUNCHES,
@@ -1096,7 +1269,9 @@ def _counts() -> dict:
             "brpc_dequant_int8": qz.LAUNCHES_INT8,
             "brpc_dequant_fp8e4m3": qz.LAUNCHES_FP8,
             "brpc_flash_carry": fa.LAUNCHES,
-            "brpc_flash_carry_tf32x3": fa.LAUNCHES_TF32X3}
+            "brpc_flash_carry_tf32x3": fa.LAUNCHES_TF32X3,
+            "brpc_mla_attn_fwd": mla.LAUNCHES_FWD,
+            "brpc_mla_attn_bwd": mla.LAUNCHES_BWD}
 
 
 def _full(want: dict) -> dict:
@@ -3708,7 +3883,10 @@ def mla_moe_path(seed: int, smi: str) -> dict:
         driver.prime()
         loss, launches = _counted(
             "MLA + MoE overlapped step (the first: no warm-up)",
-            lambda: driver.step(x, y), {"brpc_fused_momentum": len(w)})
+            lambda: driver.step(x, y),
+            {"brpc_fused_momentum": len(w),
+             "brpc_mla_attn_fwd": cfg["num_hidden_layers"],
+             "brpc_mla_attn_bwd": cfg["num_hidden_layers"]})
         routes = dict(zip(h.moe_layers, h.last_routes))
         st = ps.state()
     finally:
@@ -3772,6 +3950,7 @@ def main() -> int:
                                published_rate(name, _BF16_RATE),
                                published_rate(name, _F32_RATE),
                                published_rate(name, _TF32_RATE)))
+    rows += mla_vs_plain(args.seed, published_rate(name, _TF32_RATE))
     log(f"== phase 2 (kernels vs plain) {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     by_path = {"param_server": main_path(args.seed)}

@@ -31,62 +31,17 @@ import jax.numpy as jnp
 
 from brpc_tpu.ops import flash_attention as jfa
 from brpc_tpu_torch.ops import flash_attention as tfa
+from tf32x3 import mm_1xtf32, mm_3xtf32, split, trunc
 
 FLASH_TOL = {"m": 1e-4, "l": 1e-4, "acc": 1e-4}  # chip_smoke.py's, fp32
 KERNEL_TILE_K = 64  # flash_tf32x3_kernel's keys per tile at d <= 128
-_matmul = torch.matmul
-
-
-def _rna(x):
-    """x rounded to TF32 as cvt.rna.tf32.f32 rounds it (finite x): half an
-    ulp added to the magnitude's bits, the low 13 bits dropped."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _trunc(x):
-    """x with its low 13 bits dropped, as the tensor core reads a TF32
-    operand."""
-    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
-
-
-def _split(x):
-    big = _rna(x)
-    return big, _trunc(x - big)
-
-
-def _mm_3xtf32(a, b, apart=False):
-    """a @ b as the kernel takes it: for each 8 of the shared dimension,
-    small.big + big.small + big.big into the fp32 accumulator, or with
-    ``apart`` the cross terms into one and big.big into another, summed at
-    the end."""
-    a_big, a_small = _split(a)
-    b_big, b_small = _split(b)
-    c = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32)
-    cross = torch.zeros_like(c)
-    for k0 in range(0, a.shape[-1], 8):
-        ka, kb = (..., slice(k0, k0 + 8)), (..., slice(k0, k0 + 8),
-                                             slice(None))
-        if apart:
-            cross = cross + _matmul(a_small[ka], b_big[kb])
-            cross = cross + _matmul(a_big[ka], b_small[kb])
-        else:
-            c = c + _matmul(a_small[ka], b_big[kb])
-            c = c + _matmul(a_big[ka], b_small[kb])
-        c = c + _matmul(a_big[ka], b_big[kb])
-    return c + cross
 
 
 def _kernel_products():
     """The walk's products in its order, q.k^T then p.v for each tile, as
     the kernel takes them."""
     calls = itertools.count()
-    return lambda a, b: _mm_3xtf32(a, b, apart=next(calls) % 2 == 0)
-
-
-def _mm_1xtf32(a, b):
-    """a @ b in plain TF32: one product of the rounded operands."""
-    return _matmul(_rna(a), _rna(b))
+    return lambda a, b: mm_3xtf32(a, b, apart=next(calls) % 2 == 0)
 
 
 def _emulated_walk(monkeypatch, mm, q, k, v, m, l, acc, offsets):
@@ -145,7 +100,7 @@ def test_plain_tf32_misses_m_at_d128(monkeypatch):
     # puts ~5e-3 into each score at d = 128, ~4e-4 into s * scale.
     arrays, offsets = _inputs(128, seed=128)
     want = _jax_carry(arrays, offsets)
-    err_m_1x = _errors(_emulated_walk(monkeypatch, _mm_1xtf32, *arrays,
+    err_m_1x = _errors(_emulated_walk(monkeypatch, mm_1xtf32, *arrays,
                                       offsets), want)[0]
     err_m_3x = _errors(_emulated_walk(monkeypatch, _kernel_products(),
                                       *arrays, offsets), want)[0]
@@ -159,10 +114,10 @@ def test_split_rounds_as_cvt_rna():
     one = 1.0 + 2.0 ** -11  # halfway between two TF32 values
     x = torch.tensor([one, -one, 1.0 + 2.0 ** -12, 3.0, 1e-3, -7.25e4],
                      dtype=torch.float32)
-    big, small = _split(x)
+    big, small = split(x)
     assert big[0].item() == 1.0 + 2.0 ** -10
     assert big[1].item() == -(1.0 + 2.0 ** -10)
     assert big[2].item() == 1.0 and big[3].item() == 3.0
-    assert torch.equal(big, _trunc(big))
+    assert torch.equal(big, trunc(big))
     assert torch.equal(big + (x - big), x)
     assert ((x - big - small).abs() <= x.abs() * 2.0 ** -21).all()
